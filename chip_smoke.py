@@ -1,53 +1,111 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``fhpe_tpu_torch``) on one GPU.
 
-Drives the port's serving path once, end to end, through the entry points
-a user calls (``Predictor.warmup`` / ``Predictor.predict_crops``), at the
-full width of the FPD hourglass student (4 stacks x 128 features, MPII
-256x256, 16 joints) and of the teacher (8 x 256), with random weights from
-a seed.  Phases, one line each; any failure raises and exits non-zero:
+Drives the port's two paths end to end, through the entry points a user
+calls, with random weights from a seed:
+
+* serving the FPD hourglass (MPII 256x256, 16 joints): the student
+  (4 stacks x 128 features) and the teacher (8 x 256) at full width,
+  ``Predictor.warmup`` / ``Predictor.predict_crops``;
+* the COCO path of the FPD student HRNet-W32 (256x192, 17 joints, bf16,
+  batch 32, flip test on): ``Predictor.predict_crops`` ->
+  ``cli.common.make_evaluate_fn`` (rescore, OKS-NMS on the card through
+  the pairwise-OKS and greedy kernels, results JSON, COCO AP).
+
+Phases; any failure raises and exits non-zero:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles ``fhpe_tpu_torch/ops/csrc/*.cu`` with nvcc;
+2. build: compiles ``fhpe_tpu_torch/ops/csrc/*.cu`` with nvcc, one
+   process per source, all started together;
 3. decode kernel against its plain PyTorch version on planted edge cases
    (bit-equal), then the device time of both from a profiler trace;
-4. student serve in bf16: requests of 1, 32 and 45 crops, shape/finite
-   checks, kernel launch count, kernel vs plain on one chunk's heatmaps,
-   the bf16 dtype flow of every conv/BN/block, warm images/s;
-5. float32 parity (TF32 off): the student on the card against the same
+4. NMS kernels against their plain versions on planted cases (equal
+   scores, all padding but one, nothing valid, duplicate clusters) at
+   N = 128, 256, 1152: the OKS matrix within rtol 1e-5 / atol 1e-6, the
+   greedy keep mask bit-equal; then the device time of each and of its
+   plain version at the COCO path's N = 128;
+5. student serve in bf16: requests of 1, 32 and 45 crops, shape/finite
+   checks, decode launches == chunks, kernel vs plain on one chunk's
+   heatmaps, the bf16 dtype flow of every conv/BN/block, warm images/s;
+6. float32 parity (TF32 off): the student on the card against the same
    port on the CPU;
-6. teacher serve: one request of 32 crops with the checks of phase 4.
+7. teacher serve: one request of 32 crops with the checks of phase 5;
+8. W32 serve (He-scale weights, BN statistics from one batch) with the
+   checks of phase 5;
+9. W32 float32 parity, as phase 6;
+10. COCO evaluation on synthetic ground truth (64 images of 1-4 people):
+    (a) planted detections: per image the keep-list equals the host
+    float64 ``oks_nms``'s, AP equals the host-NMS run's and is > 0.5, and
+    the OKS and greedy kernels ran once per image; the NMS time per
+    image; (b) the W32 Predictor's own outputs on crops at the ground
+    truth boxes: decode launches == chunks, NMS launches == images, the
+    10 stats finite.
 
-Then one JSON line with the kernels, and last the ``{"ok": true, ...}``
-line.  Run from the repository root: ``python3 chip_smoke.py``.
+Each path runs with the launch counts set to 0 just before it and read
+just after; comparisons of a kernel with its plain version run outside
+those windows.  Then one JSON line with the kernels, and last the
+``{"ok": true, ...}`` line.  Run from the repository root:
+``python3 chip_smoke.py``.
 """
 
 from __future__ import annotations
 
+import copy
 import json
+import math
 import subprocess
 import sys
+import tempfile
 import time
+from collections import Counter
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 
 REPO = Path(__file__).resolve().parent
 STUDENT_YAML = REPO / "experiments/mpii/hourglass/hg4_128_student.yaml"
 TEACHER_YAML = REPO / "experiments/mpii/hourglass/hg8_256x256_teacher.yaml"
-KERNEL_SOURCE = "fhpe_tpu_torch/ops/csrc/decode.cu"
-KERNEL_REPLACES = "fhpe_tpu/ops/decode_pallas.py:24"
+W32_YAML = REPO / "experiments/coco/hrnet/w32_256x192_adam_lr1e-3.yaml"
 DECODE_SHAPES = [(32, 16, 64, 64), (32, 17, 64, 48), (3, 5, 7, 9),
                  (1, 1, 1, 1)]
 TIMED_SHAPE = (32, 16, 64, 64)
-# float32 parity of the student, card (cuDNN, TF32 off) against CPU: the
-# convolutions sum in another order, which moves float32 heatmaps by
-# about 1e-6 relative per layer over ~100 layers.
+NMS_SIZES = (128, 256, 1152)
+NMS_TIMED_N = 128          # every image of the COCO path pads to 128
+NMS_THRESH = 0.9           # TEST.OKS_THRE of the W32 config
+# K2 against its plain version: the JAX package's own bar for K2 against
+# pairwise_oks_jnp (tests/test_native_nms.py:90).
+OKS_RTOL, OKS_ATOL = 1e-5, 1e-6
+# float32 parity, card (cuDNN, TF32 off) against CPU: the convolutions
+# sum in another order, which moves float32 heatmaps by about 1e-6
+# relative per layer over ~100 layers.  Tolerance: max|diff| within
+# max(PARITY_HM_ATOL, PARITY_HM_RTOL * max|heatmap|).
 PARITY_HM_ATOL = 1e-3
-# Joints whose decode decisions all have a margin above 2 x PARITY_HM_ATOL
-# take the same argmax and offsets on both sides, so their preds differ
-# only by the float32 affine: within PARITY_PREDS_ATOL px.
+PARITY_HM_RTOL = 1e-4
+# Joints whose decode decisions all have a margin above twice the heatmap
+# tolerance take the same argmax and offsets on both sides, so their
+# preds differ only by the float32 affine: within PARITY_PREDS_ATOL px.
 PARITY_PREDS_ATOL = 1e-3
+COCO_IMAGES = 64
+COCO_SET = "val2017"
+OKS_MARGIN = 1e-5          # float32 vs float64 OKS-NMS may differ inside it
+
+# Card peaks for the bound (NVIDIA H100 SXM data sheet, dense).
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# float32 operations K2 does: per (i, j, joint) 2 subtractions, 4
+# multiplications, 2 additions and exp (counted as 2); per (i, j) the
+# denominator (2 additions, 2 divisions) and the final division.
+OKS_OPS_PER_JOINT, OKS_OPS_PER_PAIR = 10, 5
+
+KERNELS = {
+    "decode_heatmaps": {"source": "fhpe_tpu_torch/ops/csrc/decode.cu",
+                        "replaces": "fhpe_tpu/ops/decode_pallas.py:24"},
+    "pairwise_oks": {"source": "fhpe_tpu_torch/ops/csrc/nms.cu",
+                     "replaces": "fhpe_tpu/ops/nms_jax.py:75"},
+    "greedy_nms_mask": {"source": "fhpe_tpu_torch/ops/csrc/nms.cu",
+                        "replaces": "fhpe_tpu/ops/nms_jax.py:126"},
+}
 
 
 def log(phase: str, msg: str) -> None:
@@ -62,7 +120,51 @@ def card_label() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def serve_cfg(yaml_path, dtype="bfloat16"):
+def on_card(device, n: int) -> int:
+    """What a launch count should be: ``n`` on the card; 0 on the CPU,
+    where the wrappers run the plain versions (rehearsals)."""
+    return n if device.type == "cuda" else 0
+
+
+def sync(device) -> None:
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes over the HBM rate or
+    float32 operations over the peak rate, whichever is larger."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return {"bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+# -- launch counts of the main path -----------------------------------------
+
+def _counters():
+    from fhpe_tpu_torch.ops import decode, nms_torch
+    return {"decode_heatmaps": (decode, "decode_kernel_launches"),
+            "pairwise_oks": (nms_torch, "pairwise_oks_launches"),
+            "greedy_nms_mask": (nms_torch, "greedy_nms_launches")}
+
+
+def main_path_run(totals: Counter, fn):
+    """Run ``fn`` with every launch count set to 0 just before and read
+    just after; add the counts to ``totals``.  Returns (result, counts)."""
+    counters = _counters()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    out = fn()
+    counts = {name: getattr(mod, attr)
+              for name, (mod, attr) in counters.items()}
+    totals.update(counts)
+    return out, counts
+
+
+# -- configs and weights ------------------------------------------------------
+
+def serve_cfg(yaml_path, dtype="bfloat16", root=None):
     from fhpe_tpu_torch.config import load_config
     cfg = load_config(str(yaml_path))
     cfg.defrost()
@@ -70,6 +172,9 @@ def serve_cfg(yaml_path, dtype="bfloat16"):
     cfg.TEST.FLIP_TEST = True
     cfg.TEST.SHIFT_HEATMAP = True
     cfg.TEST.POST_PROCESS = True
+    if root is not None:
+        cfg.DATASET.ROOT = str(root)
+        cfg.DATASET.TEST_SET = COCO_SET
     cfg.freeze()
     return cfg
 
@@ -83,6 +188,18 @@ def seeded_model(cfg, seed: int):
         return get_pose_net(cfg)
 
 
+def he_model(cfg, seed: int):
+    """He-scale weights with BN statistics from one batch, on the CPU
+    (``models.common.he_scale_weights``): the reference init would give
+    HRNet heatmaps of ~0 that decode to (0, 0)."""
+    from fhpe_tpu_torch.models import get_pose_net
+    from fhpe_tpu_torch.models.common import he_scale_weights
+    model = get_pose_net(cfg)
+    w, h = (int(v) for v in cfg.MODEL.IMAGE_SIZE)
+    he_scale_weights(model, seed, (h, w))
+    return model
+
+
 def make_requests(cfg, n: int, seed: int):
     rng = np.random.RandomState(seed)
     w, h = (int(v) for v in cfg.MODEL.IMAGE_SIZE)
@@ -92,8 +209,10 @@ def make_requests(cfg, n: int, seed: int):
     return crops, centers, scales
 
 
+# -- kernels against their plain versions ------------------------------------
+
 def phase_kernel_vs_plain(device) -> dict:
-    """Kernel against plain on planted cases, bit-equal; then timings."""
+    """Decode kernel against plain on planted cases, bit-equal; timings."""
     import torch
     from fhpe_tpu_torch.ops.decode import decode_argmax, decode_argmax_plain
     from fhpe_tpu_torch.ops.decode_cases import planted_heatmaps
@@ -115,8 +234,7 @@ def phase_kernel_vs_plain(device) -> dict:
         for post in (True, False):
             kc, kv = decode_argmax(hm, post)
             pc, pv = decode_argmax_plain(hm, post)
-            if device.type == "cuda":
-                torch.cuda.synchronize()
+            sync(device)
             err = max((kc - pc).abs().max().item(),
                       (kv - pv).abs().max().item())
             max_err = max(max_err, err)
@@ -126,25 +244,103 @@ def phase_kernel_vs_plain(device) -> dict:
     log("kernel", f"decode kernel == plain (bit-equal) on {len(cases)} "
         f"planted cases x post_process on/off")
 
-    timing = {"ms": None, "plain_ms": None}
-    if device.type == "cuda":
-        hm = torch.from_numpy(planted_heatmaps(*TIMED_SHAPE, seed=13)
-                              ).to(device)
-        def kernel():
-            return decode_argmax(hm, True)
+    b, j, h, w = TIMED_SHAPE
+    # each heatmap value read once and compared once; (x, y, maxval) out
+    lim = bound(4 * b * j * h * w + 12 * b * j, b * j * h * w)
+    if device.type != "cuda":
+        return {"max_abs_err": max_err, "ms": None, "plain_ms": None, **lim}
+    hm = torch.from_numpy(planted_heatmaps(*TIMED_SHAPE, seed=13)).to(device)
 
-        def plain():
-            return decode_argmax_plain(hm, True)
+    def kernel():
+        return decode_argmax(hm, True)
 
-        # in turns: plain, kernel, kernel, plain
-        dp1, dk1, dk2, dp2 = (device_ms(f) for f in (plain, kernel, kernel,
-                                                     plain))
-        timing = {"ms": (dk1 + dk2) / 2, "plain_ms": (dp1 + dp2) / 2}
-        log("kernel", f"decode {TIMED_SHAPE} float32, warm L2: device time "
-            f"per call (profiler) kernel {dk1:.4f}/{dk2:.4f} ms, plain "
-            f"{dp1:.4f}/{dp2:.4f} ms")
-    return {"max_abs_err": max_err, **timing}
+    def plain():
+        return decode_argmax_plain(hm, True)
 
+    # in turns: plain, kernel, kernel, plain
+    dp1, dk1, dk2, dp2 = (device_ms(f) for f in (plain, kernel, kernel,
+                                                 plain))
+    log("kernel", f"decode {TIMED_SHAPE} float32, warm L2: device time "
+        f"per call (profiler) kernel {dk1:.4f}/{dk2:.4f} ms, plain "
+        f"{dp1:.4f}/{dp2:.4f} ms; bound {lim['bound_ms']:.5f} ms "
+        f"({lim['bound_by']})")
+    return {"max_abs_err": max_err, "ms": (dk1 + dk2) / 2,
+            "plain_ms": (dp1 + dp2) / 2, **lim}
+
+
+def phase_nms_kernels(device) -> dict:
+    """OKS kernel within tolerance and greedy kernel bit-equal to their
+    plain versions on planted cases; then timings at N = 128."""
+    import torch
+    from fhpe_tpu_torch.ops.nms_cases import planted_nms_cases
+    from fhpe_tpu_torch.ops.nms_torch import (greedy_nms_mask,
+                                              greedy_nms_mask_plain,
+                                              pairwise_oks,
+                                              pairwise_oks_plain)
+    from fhpe_tpu_torch.utils.profiling import device_ms
+
+    oks_err, checked = 0.0, 0
+    for n in NMS_SIZES:
+        for name, *arrays in planted_nms_cases(n, seed=n):
+            xs, ys, areas, scores, valid = (torch.from_numpy(a).to(device)
+                                            for a in arrays)
+            sim = pairwise_oks(xs, ys, areas)
+            ref = pairwise_oks_plain(xs, ys, areas)
+            sync(device)
+            oks_err = max(oks_err, (sim - ref).abs().max().item())
+            if not torch.allclose(sim, ref, rtol=OKS_RTOL, atol=OKS_ATOL):
+                raise AssertionError(f"OKS kernel != plain beyond rtol "
+                                     f"{OKS_RTOL} atol {OKS_ATOL} on {name}"
+                                     f" N={n}")
+            for s in (sim, ref):
+                keep = greedy_nms_mask(s, scores, valid, NMS_THRESH)
+                keep_ref = greedy_nms_mask_plain(s, scores, valid,
+                                                 NMS_THRESH)
+                if not torch.equal(keep, keep_ref):
+                    raise AssertionError(f"greedy kernel != plain on {name}"
+                                         f" N={n}")
+            checked += 1
+    log("nms", f"OKS kernel within rtol {OKS_RTOL} / atol {OKS_ATOL} of "
+        f"plain (max|diff| {oks_err:.3g}), greedy kernel == plain "
+        f"(bit-equal) on {checked} planted cases at N = {NMS_SIZES}")
+
+    _, *arrays = planted_nms_cases(NMS_TIMED_N, seed=21)[0]   # clusters
+    xs, ys, areas, scores, valid = (torch.from_numpy(a).to(device)
+                                    for a in arrays)
+    sim = pairwise_oks(xs, ys, areas)
+    kept = int(greedy_nms_mask(sim, scores, valid, NMS_THRESH).sum())
+    n, j = xs.shape
+    timed = {
+        "pairwise_oks": (
+            lambda: pairwise_oks(xs, ys, areas),
+            lambda: pairwise_oks_plain(xs, ys, areas),
+            # xs, ys, areas read once; the (N, N) matrix written once
+            bound(4 * (2 * n * j + n + n * n),
+                  n * n * (OKS_OPS_PER_JOINT * j + OKS_OPS_PER_PAIR))),
+        "greedy_nms_mask": (
+            lambda: greedy_nms_mask(sim, scores, valid, NMS_THRESH),
+            lambda: greedy_nms_mask_plain(sim, scores, valid, NMS_THRESH),
+            # one row of sim per kept detection, scores, valid, keep
+            bound(4 * kept * n + 4 * n + 2 * n, kept * n)),
+    }
+    out = {"pairwise_oks": {"max_abs_err": oks_err},
+           "greedy_nms_mask": {"max_abs_err": 0.0}}
+    for name, (kernel, plain, lim) in timed.items():
+        out[name].update(ms=None, plain_ms=None, **lim)
+        if device.type != "cuda":
+            continue
+        iters = 100 if name == "pairwise_oks" else 20
+        dp1, dk1, dk2, dp2 = (device_ms(f, iters) for f in
+                              (plain, kernel, kernel, plain))
+        out[name].update(ms=(dk1 + dk2) / 2, plain_ms=(dp1 + dp2) / 2, **lim)
+        log("nms", f"{name} N={n} ({int(valid.sum())} valid, {kept} kept):"
+            f" device time per call (profiler) kernel {dk1:.4f}/{dk2:.4f}"
+            f" ms, plain {dp1:.4f}/{dp2:.4f} ms; bound "
+            f"{lim['bound_ms']:.6f} ms ({lim['bound_by']})")
+    return out
+
+
+# -- serving -------------------------------------------------------------------
 
 def check_outputs(phase, preds, maxvals, n, num_joints):
     if preds.shape != (n, num_joints, 2) or maxvals.shape != (n, num_joints):
@@ -177,7 +373,7 @@ def check_bf16_flow(phase, p, crops):
     """The forward on the card keeps fhpe_tpu's bf16 flow (CUDA autocast
     lists some ops as float32, the CPU tests cannot see that)."""
     import torch
-    from fhpe_tpu_torch.models.hourglass import bf16_flow_violations
+    from fhpe_tpu_torch.models.common import bf16_flow_violations
     from fhpe_tpu_torch.ops.preprocess import normalize_images
     if p.dtype != torch.bfloat16:
         return
@@ -190,12 +386,13 @@ def check_bf16_flow(phase, p, crops):
         f"(convs, BNs, blocks: bf16 in and out; heatmaps float32)")
 
 
-def phase_serve(phase, cfg, device, requests, seed, label="") -> int:
-    """Serve ``requests`` (crop counts); returns the kernel launches."""
-    from fhpe_tpu_torch.ops import decode
+def phase_serve(phase, cfg, model, device, requests, seed, totals,
+                label=""):
+    """Serve ``requests`` (crop counts) as one main-path run; returns the
+    Predictor."""
     from fhpe_tpu_torch.serve import Predictor
 
-    p = Predictor(cfg, seeded_model(cfg, seed), device=device)
+    p = Predictor(cfg, model, device=device)
     t0 = time.perf_counter()
     p.warmup()
     log(phase, f"warmup {time.perf_counter() - t0:.2f} s "
@@ -205,13 +402,12 @@ def phase_serve(phase, cfg, device, requests, seed, label="") -> int:
     data = [make_requests(cfg, n, seed + 1 + i)
             for i, n in enumerate(requests)]
     chunks = sum(-(-n // p.batch_size) for n in requests)
-    decode.decode_kernel_launches = 0
-    outs = [p.predict_crops(*d) for d in data]
-    launches = decode.decode_kernel_launches
+    outs, counts = main_path_run(
+        totals, lambda: [p.predict_crops(*d) for d in data])
+    launches = counts["decode_heatmaps"]
     for n, (preds, maxvals) in zip(requests, outs):
         check_outputs(phase, preds, maxvals, n, num_joints)
-    expect = chunks if device.type == "cuda" else 0
-    if launches != expect:
+    if launches != on_card(device, chunks):
         raise AssertionError(f"{phase}: {launches} decode kernel launches "
                              f"for {chunks} chunks")
     log(phase, f"requests {requests}: shapes and finite ok, "
@@ -230,11 +426,12 @@ def phase_serve(phase, cfg, device, requests, seed, label="") -> int:
         log(phase, f"warm predict_crops {sorted(rates)[1]:.1f} images/s "
             f"(median of 3 x {len(crops)} crops, flip test on, "
             f"{cfg.TPU.COMPUTE_DTYPE}, batch {p.batch_size}) on {label}")
-    return launches
+    return p
 
 
-def phase_f32_parity(cfg, device, seed) -> None:
-    """Student float32 on the card (TF32 off) against the port on CPU."""
+def phase_f32_parity(phase, cfg, model, device, seed) -> None:
+    """float32 on the card (TF32 off) against the port on the CPU, on the
+    same weights (``model`` lives on the CPU)."""
     import torch
     from fhpe_tpu_torch.ops.decode_cases import decision_margin
     from fhpe_tpu_torch.serve import Predictor
@@ -244,39 +441,175 @@ def phase_f32_parity(cfg, device, seed) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        model = seeded_model(cfg, seed)
         crops, centers, scales = make_requests(cfg, 2, seed + 7)
-        gpu = Predictor(cfg, model, batch_size=2, device=device)
-        cpu = Predictor(cfg, seeded_model(cfg, seed), batch_size=2,
-                        device="cpu")
+        gpu = Predictor(cfg, copy.deepcopy(model), batch_size=2,
+                        device=device)
+        cpu = Predictor(cfg, model, batch_size=2, device="cpu")
         hm_g = gpu.merged_heatmaps(torch.from_numpy(crops).to(device)).cpu()
         hm_c = cpu.merged_heatmaps(torch.from_numpy(crops))
         hm_err = (hm_g - hm_c).abs().max().item()
-        if not hm_err <= PARITY_HM_ATOL:
-            raise AssertionError(f"f32 parity: heatmaps differ by {hm_err} "
-                                 f"> {PARITY_HM_ATOL}")
+        hm_max = hm_c.abs().max().item()
+        tol = max(PARITY_HM_ATOL, PARITY_HM_RTOL * hm_max)
+        if not hm_err <= tol:
+            raise AssertionError(f"{phase}: heatmaps differ by {hm_err} > "
+                                 f"{tol}")
         preds_g, vals_g = gpu.predict_crops(crops, centers, scales)
         preds_c, vals_c = cpu.predict_crops(crops, centers, scales)
     finally:
         torch.backends.cudnn.allow_tf32, \
             torch.backends.cuda.matmul.allow_tf32 = prev
 
-    robust = decision_margin(hm_c.numpy()) > 2 * PARITY_HM_ATOL
+    robust = decision_margin(hm_c.numpy()) > 2 * tol
     mismatch = (np.abs(preds_g - preds_c) > PARITY_PREDS_ATOL).any(-1) \
         & robust
     if mismatch.any():
-        raise AssertionError(f"f32 parity: {int(mismatch.sum())} robust "
+        raise AssertionError(f"{phase}: {int(mismatch.sum())} robust "
                              f"joints decode differently")
     val_err = np.abs(vals_g - vals_c).max()
-    if not val_err <= PARITY_HM_ATOL:
-        raise AssertionError(f"f32 parity: maxvals differ by {val_err}")
-    log("f32-parity", f"card vs CPU, TF32 off: heatmaps max|diff| "
-        f"{hm_err:.3g} (tol {PARITY_HM_ATOL}, max|hm| "
-        f"{hm_c.abs().max().item():.3g}); preds within "
+    if not val_err <= tol:
+        raise AssertionError(f"{phase}: maxvals differ by {val_err}")
+    log(phase, f"card vs CPU, TF32 off: heatmaps max|diff| {hm_err:.3g} "
+        f"(tol {tol:.3g}, max|hm| {hm_max:.3g}); preds within "
         f"{PARITY_PREDS_ATOL} px on {int(robust.sum())}/{robust.size} "
-        f"joints with decode margin > {2 * PARITY_HM_ATOL} (max|pred diff| "
-        f"over all {np.abs(preds_g - preds_c).max():.3g} px); maxvals "
-        f"max|diff| {val_err:.3g}")
+        f"joints with decode margin > {2 * tol:.3g} (max|pred diff| over "
+        f"all {np.abs(preds_g - preds_c).max():.3g} px); maxvals max|diff| "
+        f"{val_err:.3g}")
+
+
+# -- COCO evaluation ---------------------------------------------------------
+
+def phase_coco_planted(cfg, gt, device, out_dir, totals) -> None:
+    """Planted detections through make_evaluate_fn: keep-lists per image
+    against the host float64 oks_nms, AP against the host-NMS run's."""
+    from fhpe_tpu_torch.cli.common import make_evaluate_fn
+    from fhpe_tpu_torch.data.coco import rescore_and_nms
+    from fhpe_tpu_torch.data.coco_synthetic import (oks_margin,
+                                                    planted_detections)
+    from fhpe_tpu_torch.ops import nms_torch
+    from fhpe_tpu_torch.ops.nms import oks_nms
+
+    aspect = cfg.MODEL.IMAGE_SIZE[0] / cfg.MODEL.IMAGE_SIZE[1]
+    preds, boxes, paths = planted_detections(gt, cfg.DATASET.ROOT, COCO_SET,
+                                             aspect, seed=3)
+    images = len(set(paths))
+    thresh = cfg.TEST.OKS_THRE
+    evaluate = make_evaluate_fn(cfg, device=device)
+
+    # The host-NMS run: the same entry point with the host oks_nms in the
+    # device drop-in's place; each image's device keep-list is compared.
+    device_nms, lists, skipped = nms_torch.oks_nms_device, [], 0
+
+    def host_nms(kpts_db, oks_thre, sigmas=None, pad_to=128, device="cuda"):
+        nonlocal skipped
+        host = oks_nms(kpts_db, oks_thre, sigmas)
+        if oks_margin(kpts_db, oks_thre) > OKS_MARGIN:
+            lists.append((device_nms(kpts_db, oks_thre, sigmas, pad_to,
+                                     device), host))
+        else:
+            skipped += 1
+        return host
+
+    with mock.patch.object(nms_torch, "oks_nms_device", host_nms):
+        nv_host, _ = evaluate(cfg, preds, str(out_dir / "host"), boxes, paths)
+    bad = sum(d != h for d, h in lists)
+    if bad or not lists:
+        raise AssertionError(f"coco: device keep-lists differ from host "
+                             f"oks_nms on {bad} of {len(lists)} images")
+    log("coco", f"keep-lists == host oks_nms (float64) on {len(lists)} of "
+        f"{images} images ({skipped} with an OKS within {OKS_MARGIN} of "
+        f"OKS_THRE {thresh}); {len(preds)} detections, "
+        f"{sum(len(h) for _, h in lists)} kept")
+
+    (nv, _), counts = main_path_run(
+        totals, lambda: evaluate(cfg, preds, str(out_dir / "device"), boxes,
+                                 paths))
+    if list(nv.items()) != list(nv_host.items()) or not nv["AP"] > 0.5:
+        raise AssertionError(f"coco: device-NMS stats {dict(nv)} != host-"
+                             f"NMS stats {dict(nv_host)} or AP <= 0.5")
+    if not counts["pairwise_oks"] == counts["greedy_nms_mask"] == \
+            on_card(device, images):
+        raise AssertionError(f"coco: OKS/greedy launches {counts} for "
+                             f"{images} images")
+    log("coco", f"planted detections: AP {nv['AP']:.4f} == host-NMS run's "
+        f"(all 10 stats equal); pairwise_oks {counts['pairwise_oks']} and "
+        f"greedy {counts['greedy_nms_mask']} launches == {images} images")
+
+    # NMS cost per image on the host clock, warm, each call ending in its
+    # keep-mask download; against the host float64 oks_nms
+    groups = rescore_and_nms(preds, boxes, paths, in_vis_thre=
+                             cfg.TEST.IN_VIS_THRE, oks_thre=2.0,
+                             device=device)
+    per = {"device": [], "host": []}
+    for img in groups:
+        device_nms(img, thresh, device=device)
+        for name, fn in (("device", lambda: device_nms(img, thresh,
+                                                       device=device)),
+                         ("host", lambda: oks_nms(img, thresh))):
+            t0 = time.perf_counter()
+            fn()
+            per[name].append((time.perf_counter() - t0) * 1e3)
+    log("coco", f"NMS per image (host clock, median of {len(groups)} "
+        f"images of {min(map(len, groups))}-{max(map(len, groups))} "
+        f"detections): oks_nms_device {np.median(per['device']):.4f} ms "
+        f"(pack, one upload, two launches, one keep-mask download), host "
+        f"float64 oks_nms {np.median(per['host']):.4f} ms")
+    if device.type == "cuda":
+        from fhpe_tpu_torch.utils.profiling import busy_ms, device_events
+        walls = []
+
+        def all_images():
+            t0 = time.perf_counter()
+            for img in groups:
+                device_nms(img, thresh, device=device)
+            walls.append((time.perf_counter() - t0) * 1e3)
+
+        events = device_events(all_images)
+        busy = busy_ms(events)
+        copies = sum(float(e["dur"]) for e in events
+                     if e["cat"] == "gpu_memcpy") / 1e3
+        log("coco", f"NMS of all {len(groups)} images under the profiler: "
+            f"{walls[0]:.3f} ms, device busy {busy:.3f} ms (idle share "
+            f"{1 - busy / walls[0]:.3f}), of which memcpy {copies:.3f} ms; "
+            f"{len(events) / len(groups):.1f} device ops per image")
+
+
+def phase_coco_predictor(p, cfg, gt, device, out_dir, totals) -> None:
+    """The whole COCO path: W32 predictions on crops at the ground-truth
+    boxes, then make_evaluate_fn."""
+    from fhpe_tpu_torch.cli.common import make_evaluate_fn
+    from fhpe_tpu_torch.data.coco_synthetic import gt_boxes
+
+    aspect = cfg.MODEL.IMAGE_SIZE[0] / cfg.MODEL.IMAGE_SIZE[1]
+    boxes, paths = gt_boxes(gt, cfg.DATASET.ROOT, COCO_SET, aspect)
+    w, h = (int(v) for v in cfg.MODEL.IMAGE_SIZE)
+    crops = np.random.RandomState(31).randint(
+        0, 256, size=(len(boxes), h, w, 3)).astype(np.uint8)
+    evaluate = make_evaluate_fn(cfg, device=device)
+    times = {}
+
+    def run():
+        t0 = time.perf_counter()
+        preds, maxvals = p.predict_crops(crops, boxes[:, :2], boxes[:, 2:4])
+        times["predict"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = evaluate(cfg, np.concatenate([preds, maxvals[..., None]], -1),
+                       str(out_dir / "w32"), boxes, paths)
+        times["evaluate"] = time.perf_counter() - t0
+        return out
+
+    (nv, _), counts = main_path_run(totals, run)
+    chunks, images = -(-len(boxes) // p.batch_size), len(set(paths))
+    if counts["decode_heatmaps"] != on_card(device, chunks) or not \
+            counts["pairwise_oks"] == counts["greedy_nms_mask"] == \
+            on_card(device, images):
+        raise AssertionError(f"coco-w32: launches {counts} for {chunks} "
+                             f"chunks and {images} images")
+    if len(nv) != 10 or not all(math.isfinite(v) for v in nv.values()):
+        raise AssertionError(f"coco-w32: stats {dict(nv)}")
+    log("coco-w32", f"{len(boxes)} crops -> predict_crops "
+        f"{times['predict']:.3f} s -> evaluate {times['evaluate']:.3f} s; "
+        f"launches {counts} ({chunks} chunks, {images} images); 10 stats "
+        f"finite: " + ", ".join(f"{k} {v:.4f}" for k, v in nv.items()))
 
 
 def main() -> int:
@@ -285,6 +618,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    from fhpe_tpu_torch.data.coco_synthetic import (synthetic_coco_gt,
+                                                    write_coco_gt)
     from fhpe_tpu_torch.ops import _build
 
     device = torch.device("cuda", 0)
@@ -299,20 +634,43 @@ def main() -> int:
     log("build", f"{lib_path.relative_to(REPO)} in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    kernel = phase_kernel_vs_plain(device)
+    stats = {"decode_heatmaps": phase_kernel_vs_plain(device),
+             **phase_nms_kernels(device)}
+    totals = Counter()
 
     student = serve_cfg(STUDENT_YAML)
-    launches = phase_serve("student", student, device, [1, 32, 45], seed=0,
-                           label=label)
-    phase_f32_parity(serve_cfg(STUDENT_YAML, "float32"), device, seed=0)
-    launches += phase_serve("teacher", serve_cfg(TEACHER_YAML), device, [32],
-                            seed=100)
+    phase_serve("student", student, seeded_model(student, 0), device,
+                [1, 32, 45], seed=0, totals=totals, label=label)
+    f32 = serve_cfg(STUDENT_YAML, "float32")
+    phase_f32_parity("f32-parity", f32, seeded_model(f32, 0), device, seed=0)
+    teacher = serve_cfg(TEACHER_YAML)
+    phase_serve("teacher", teacher, seeded_model(teacher, 100), device, [32],
+                seed=100, totals=totals)
 
-    print(json.dumps({"kernels": [{
-        "name": "decode_heatmaps", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": kernel["max_abs_err"], "ms": kernel["ms"],
-        "plain_ms": kernel["plain_ms"]}]}), flush=True)
+    build_dir = REPO / "build"
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        root = Path(tmp)
+        gt = synthetic_coco_gt(COCO_IMAGES, seed=0)
+        write_coco_gt(str(root), COCO_SET, gt)
+        w32 = serve_cfg(W32_YAML, root=root)
+        p = phase_serve("w32", w32, he_model(w32, 200), device, [1, 32, 45],
+                        seed=200, totals=totals, label=label)
+        w32_f32 = serve_cfg(W32_YAML, "float32")
+        phase_f32_parity("w32-f32-parity", w32_f32, he_model(w32_f32, 200),
+                         device, seed=200)
+        phase_coco_planted(w32, gt, device, root, totals)
+        phase_coco_predictor(p, w32, gt, device, root, totals)
+
+    for name in KERNELS:
+        if totals[name] <= 0:
+            raise AssertionError(f"the main path never launched {name}")
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", **KERNELS[name],
+         "launches": totals[name], "max_abs_err": s["max_abs_err"],
+         "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+         "bound_by": s["bound_by"], "library_ms": None}
+        for name, s in stats.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

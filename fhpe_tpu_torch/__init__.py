@@ -4,9 +4,11 @@ The JAX package ``fhpe_tpu`` stays the reference; this package serves the
 same models with PyTorch (cuDNN convolutions) and hand-written CUDA
 kernels for what ``fhpe_tpu`` wrote in Pallas.  It never imports JAX.
 
-Covered so far: the serving path of the stacked hourglass
+Covered so far: serving the stacked hourglass and HRNet
 (``fhpe_tpu_torch.serve.Predictor``) with the heatmap-decode kernel
-(``fhpe_tpu_torch.ops.decode``).
+(``fhpe_tpu_torch.ops.decode``), and COCO evaluation
+(``fhpe_tpu_torch.cli.common.make_evaluate_fn``) with OKS-NMS on the card
+(``fhpe_tpu_torch.ops.nms_torch``: the pairwise OKS and greedy kernels).
 """
 
 __version__ = "0.1.0"

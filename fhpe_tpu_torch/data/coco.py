@@ -1,0 +1,122 @@
+"""COCO keypoints host glue for evaluation: annotation index, bbox ->
+center/scale, rescoring + OKS-NMS, results JSON.
+
+A copy of the host parts of ``fhpe_tpu/data/coco.py`` (importing
+``fhpe_tpu.data`` pulls in JAX), pinned equal to them by
+``tests/test_torch_port_hygiene.py``.  One change: the hard OKS-NMS of
+:func:`rescore_and_nms` runs on ``device`` through
+``ops/nms_torch.py::oks_nms_device`` (the pairwise OKS kernel and the
+greedy kernel), the drop-in ``fhpe_tpu`` ships for the host ``oks_nms``;
+its keep-lists equal the host's wherever no OKS lies within float32
+rounding of ``oks_thre``.  Soft OKS-NMS stays on the host.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from collections import defaultdict
+
+import numpy as np
+
+NUM_JOINTS = 17
+
+
+class CocoIndex:
+    """Minimal COCO person-keypoints annotation index (no pycocotools)."""
+
+    def __init__(self, ann_file: str):
+        with open(ann_file) as f:
+            data = json.load(f)
+        self.images = {im["id"]: im for im in data.get("images", [])}
+        self.img_ids = sorted(self.images)
+        self.anns = {a["id"]: a for a in data.get("annotations", [])}
+        self.img_to_anns = defaultdict(list)
+        for a in data.get("annotations", []):
+            self.img_to_anns[a["image_id"]].append(a)
+        self.cats = {c["id"]: c for c in data.get("categories", [])}
+        self.person_cat_id = next(
+            (cid for cid, c in self.cats.items() if c["name"] == "person"), 1)
+
+    def annotations(self, img_id, iscrowd: bool | None = False):
+        anns = self.img_to_anns.get(img_id, [])
+        if iscrowd is None:
+            return anns
+        return [a for a in anns if bool(a.get("iscrowd", 0)) == iscrowd]
+
+
+def xywh2cs(x, y, w, h, aspect_ratio, pixel_std: float = 200.0):
+    """bbox -> (center, scale) with aspect fix and *1.25 (coco.py:227-242)."""
+    center = np.array([x + w * 0.5, y + h * 0.5], dtype=np.float32)
+    if w > aspect_ratio * h:
+        h = w * 1.0 / aspect_ratio
+    elif w < aspect_ratio * h:
+        w = h * aspect_ratio
+    scale = np.array([w / pixel_std, h / pixel_std], dtype=np.float32)
+    if center[0] != -1:
+        scale = scale * 1.25
+    return center, scale
+
+
+def rescore_and_nms(preds, all_boxes, img_paths, num_joints=NUM_JOINTS,
+                    in_vis_thre=0.0, oks_thre=0.9, soft=False,
+                    device="cuda"):
+    """Group per image, rescore, OKS-NMS (coco.py:318-369).
+
+    preds: (N, J, 3); all_boxes: (N, 6) [cx, cy, sx, sy, area, score];
+    img_paths: list of image paths (image id parsed from the tail).
+    The hard NMS runs on ``device`` (``oks_nms_device``), once per image.
+    Returns list-of-images, each a list of kept kpt dicts.
+    """
+    from ..ops.nms import soft_oks_nms
+    from ..ops.nms_torch import oks_nms_device
+
+    kpts = defaultdict(list)
+    for idx, kpt in enumerate(preds):
+        kpts[int(img_paths[idx][-16:-4])].append({
+            "keypoints": kpt,
+            "center": all_boxes[idx][0:2],
+            "scale": all_boxes[idx][2:4],
+            "area": all_boxes[idx][4],
+            "score": all_boxes[idx][5],
+            "image": int(img_paths[idx][-16:-4]),
+        })
+
+    out = []
+    for img in kpts.keys():
+        img_kpts = kpts[img]
+        for p in img_kpts:
+            box_score = p["score"]
+            ks = [p["keypoints"][j][2] for j in range(num_joints)
+                  if p["keypoints"][j][2] > in_vis_thre]
+            kpt_score = (sum(ks) / len(ks)) if ks else 0
+            p["score"] = kpt_score * box_score
+        if soft:
+            keep = soft_oks_nms(img_kpts, oks_thre)
+        else:
+            keep = oks_nms_device(img_kpts, oks_thre, device=device)
+        out.append(img_kpts if len(keep) == 0 else [img_kpts[k] for k in keep])
+    return out
+
+
+def write_results_json(oks_nmsed_kpts, res_file, num_joints=NUM_JOINTS,
+                       cat_id=1):
+    """COCO results JSON (coco.py:381-442)."""
+    results = []
+    for img_kpts in oks_nmsed_kpts:
+        if len(img_kpts) == 0:
+            continue
+        for k in img_kpts:
+            kp = np.asarray(k["keypoints"], dtype=np.float64)[:, :3]
+            results.append({
+                "image_id": k["image"],
+                "category_id": cat_id,
+                "keypoints": [float(v) for v in kp.flatten()],
+                "score": float(k["score"]),
+                "center": [float(v) for v in k["center"]],
+                "scale": [float(v) for v in k["scale"]],
+            })
+    os.makedirs(os.path.dirname(res_file), exist_ok=True)
+    with open(res_file, "w") as f:
+        json.dump(results, f, sort_keys=True, indent=4)
+    return results

@@ -1,14 +1,18 @@
-"""Model registry (``hourglass`` only so far)."""
+"""Model registry (``hourglass`` and ``pose_hrnet`` so far).
+
+The hourglass returns one heatmap tensor per stack, HRNet a single
+heatmap tensor; :func:`is_multi_output` tells callers which.
+"""
 
 from __future__ import annotations
 
-from . import hourglass
+from . import hourglass, pose_hrnet
 from .common import param_count
 
-_REGISTRY = {"hourglass": hourglass.get_pose_net}
+_REGISTRY = {"hourglass": hourglass.get_pose_net,
+             "pose_hrnet": pose_hrnet.get_pose_net}
 _NOT_PORTED = {
-    "pose_hrnet": "ROADMAP.md queue A, item 9 (HRNet / PoseResNet)",
-    "pose_resnet": "ROADMAP.md queue A, item 9 (HRNet / PoseResNet)",
+    "pose_resnet": "ROADMAP.md queue A, item 9 (PoseResNet)",
 }
 
 
@@ -22,4 +26,10 @@ def get_pose_net(cfg):
     return _REGISTRY[name](cfg)
 
 
-__all__ = ["get_pose_net", "param_count", "hourglass"]
+def is_multi_output(model) -> bool:
+    """True for models emitting per-stack heatmaps (stacked hourglass)."""
+    return isinstance(model, hourglass.HourglassNet)
+
+
+__all__ = ["get_pose_net", "is_multi_output", "param_count", "hourglass",
+           "pose_hrnet"]

@@ -1,17 +1,23 @@
 """Shared building blocks for the pose backbones (NCHW, PyTorch).
 
-Counterpart of ``fhpe_tpu/models/common.py``.  ``nn.BatchNorm2d`` already
-has the semantics ``fhpe_tpu``'s ``_TorchBatchNorm`` rebuilds by hand
-(biased variance to normalize, Bessel-corrected running variance,
-momentum 0.1, eps 1e-5), and ``nn.Conv2d``'s default initialization is
-the one ``fhpe_tpu``'s ``torch_conv_kernel_init`` reproduces.
+Counterpart of ``fhpe_tpu/models/common.py`` and of the residual blocks
+of ``fhpe_tpu/models/pose_hrnet.py``.  ``nn.BatchNorm2d`` already has the
+semantics ``fhpe_tpu``'s ``_TorchBatchNorm`` rebuilds by hand (biased
+variance to normalize, Bessel-corrected running variance, momentum 0.1,
+eps 1e-5), and ``nn.Conv2d``'s default initialization is the one
+``fhpe_tpu``'s ``torch_conv_kernel_init`` reproduces.
 """
 
 from __future__ import annotations
 
+from typing import Dict
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..utils.dtype import autocast
 
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
@@ -37,13 +43,171 @@ def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     """Nearest-neighbor upsample (reference ``F.interpolate(scale_factor)``).
 
     Runs in ``x``'s dtype: CUDA autocast lists the upsample ops as
-    float32, which would turn the hourglass's ``up1 + up2`` and what
-    follows into float32 where ``fhpe_tpu`` stays in bf16.  Copying values
-    is exact in any dtype.
+    float32, which would turn the hourglass's ``up1 + up2`` (and HRNet's
+    fuse sums) and what follows into float32 where ``fhpe_tpu`` stays in
+    bf16.  Copying values is exact in any dtype.
     """
     with torch.autocast(x.device.type, enabled=False):
         return F.interpolate(x, scale_factor=factor, mode="nearest")
 
 
+class UpsampleNearest(nn.Module):
+    """:func:`upsample_nearest` as a module (the reference's
+    ``nn.Upsample(scale_factor, mode='nearest')``; no parameters)."""
+
+    def __init__(self, factor: int):
+        super().__init__()
+        self.factor = factor
+
+    def forward(self, x):
+        return upsample_nearest(x, self.factor)
+
+
+def _downsample(inplanes: int, outplanes: int, stride: int) -> nn.Sequential:
+    return nn.Sequential(conv(inplanes, outplanes, 1, stride, bias=False),
+                         batch_norm(outplanes))
+
+
+class BasicBlock(nn.Module):
+    """Post-activation residual block, expansion 1, bias-free convs
+    (reference ``pose_hrnet.py`` ``BasicBlock``)."""
+
+    expansion = 1
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        self.conv1 = conv(inplanes, planes, 3, stride, bias=False)
+        self.bn1 = batch_norm(planes)
+        self.conv2 = conv(planes, planes, 3, bias=False)
+        self.bn2 = batch_norm(planes)
+        self.downsample = (_downsample(inplanes, planes, stride)
+                           if downsample else None)
+
+    def forward(self, x):
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + residual)
+
+
+class Bottleneck(nn.Module):
+    """Post-activation bottleneck, expansion 4, bias-free convs
+    (reference ``pose_hrnet.py`` ``Bottleneck``)."""
+
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        self.conv1 = conv(inplanes, planes, 1, bias=False)
+        self.bn1 = batch_norm(planes)
+        self.conv2 = conv(planes, planes, 3, stride, bias=False)
+        self.bn2 = batch_norm(planes)
+        self.conv3 = conv(planes, planes * 4, 1, bias=False)
+        self.bn3 = batch_norm(planes * 4)
+        self.downsample = (_downsample(inplanes, planes * 4, stride)
+                           if downsample else None)
+
+    def forward(self, x):
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + residual)
+
+
 def param_count(module: nn.Module) -> int:
     return sum(p.numel() for p in module.parameters())
+
+
+def bf16_flow_violations(model: nn.Module, x: torch.Tensor):
+    """Run ``model(x)`` in the bf16 autocast the Predictor uses; return
+    the number of modules checked and the list of those that break
+    ``fhpe_tpu``'s flow, as ``(name, input dtype, output dtype)``.
+
+    The flow: every conv, BatchNorm and block of ``model.flow_blocks``
+    takes and emits bf16 (the stem conv ``conv1`` takes the float32
+    image), and the heatmaps (every stack's, for the hourglass) come out
+    float32.
+    """
+    checked = (nn.Conv2d, nn.BatchNorm2d, *model.flow_blocks)
+    bad, hooks = [], []
+
+    def hook(name):
+        def record(module, inputs, out):
+            want = torch.float32 if name == "conv1" else torch.bfloat16
+            if inputs[0].dtype != want or out.dtype != torch.bfloat16:
+                bad.append((name, inputs[0].dtype, out.dtype))
+        return record
+
+    for name, module in model.named_modules():
+        if isinstance(module, checked):
+            hooks.append(module.register_forward_hook(hook(name)))
+    try:
+        with torch.inference_mode(), autocast(torch.bfloat16, x.device):
+            outs = model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    if isinstance(outs, torch.Tensor):
+        outs = [outs]
+    bad += [(f"heatmaps.{i}", torch.bfloat16, o.dtype)
+            for i, o in enumerate(outs) if o.dtype != torch.float32]
+    return len(hooks) + len(outs), bad
+
+
+def _he_scale_draws(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
+    """Conv kernels normal(0, sqrt(2 / fan_in)), conv biases normal(0,
+    0.1); BatchNorm scale and running variance uniform(0.5, 1.5), bias and
+    running mean normal(0, 0.1); numpy, from ``seed``."""
+    rng = np.random.RandomState(seed)
+    sd = {}
+    for key, value in model.state_dict().items():
+        shape = tuple(value.shape)
+        name = key.rsplit(".", 1)[-1]
+        if name == "num_batches_tracked":
+            sd[key] = torch.zeros_like(value)
+            continue
+        if name == "weight" and len(shape) == 4:
+            fan_in = int(np.prod(shape[1:]))
+            a = rng.normal(0, np.sqrt(2.0 / fan_in), shape)
+        elif name in ("weight", "running_var"):
+            a = rng.uniform(0.5, 1.5, shape)
+        else:   # conv and BN biases, running means
+            a = rng.normal(0, 0.1, shape)
+        sd[key] = torch.from_numpy(a.astype(np.float32))
+    return sd
+
+
+def he_scale_weights(model: nn.Module, seed: int,
+                     image_hw) -> Dict[str, torch.Tensor]:
+    """Random weights for parity checks, drawn with numpy from ``seed``:
+    He-scale conv kernels and random BatchNorm scale and bias, then every
+    BatchNorm's running mean and variance taken from one train-mode
+    forward of two seeded normal images of ``image_hw`` (H, W), in float32
+    on the CPU.
+
+    The reference init (normal(0, 0.001) kernels) gives HRNet heatmaps of
+    ~0 that decode to (0, 0) whatever the weights, which no parity check
+    could tell apart.  A trained net's BN statistics match its
+    activations.  Random ones do
+    not, and HRNet's residual sums then roughly double per block, so
+    W32's heatmaps grow by many orders of magnitude; with matched
+    statistics they stay moderate.
+    Leaves ``model`` in eval mode holding the returned weights.
+    """
+    model.load_state_dict(_he_scale_draws(model, seed))
+    bns = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
+    x = np.random.RandomState(seed).randn(2, 3, *image_hw)
+    for m in bns:
+        m.reset_running_stats()
+        m.momentum = None   # cumulative average: one batch sets the stats
+    model.train()
+    with torch.no_grad():
+        model(torch.from_numpy(x.astype(np.float32)))
+    model.eval()
+    for m in bns:
+        m.momentum = BN_MOMENTUM
+        m.num_batches_tracked.zero_()
+    return {k: v.clone() for k, v in model.state_dict().items()}

@@ -25,7 +25,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..utils.dtype import autocast
 from .common import batch_norm, conv, max_pool_2x2, upsample_nearest
 
 
@@ -102,6 +101,8 @@ class HourglassNet(nn.Module):
     as ``fhpe_tpu`` does).
     """
 
+    flow_blocks = (Bottleneck, Hourglass)   # common.bf16_flow_violations
+
     def __init__(self, num_stacks: int = 8, num_blocks: int = 1,
                  num_features: int = 256, num_joints: int = 16,
                  dead_bias_skip: bool = False):
@@ -151,39 +152,6 @@ class HourglassNet(nn.Module):
             if i < self.num_stacks - 1:
                 x = x + self.fc_[i](y) + self.score_[i](score)
         return outs
-
-
-def bf16_flow_violations(model: HourglassNet, x: torch.Tensor):
-    """Run ``model(x)`` in the bf16 autocast the Predictor uses; return
-    the number of modules checked and the list of those that break
-    ``fhpe_tpu``'s flow, as ``(name, input dtype, output dtype)``.
-
-    The flow: every conv, BatchNorm, Bottleneck and Hourglass takes and
-    emits bf16 (the stem conv takes the float32 image), and every stack's
-    heatmaps come out float32.
-    """
-    checked = (nn.Conv2d, nn.BatchNorm2d, Bottleneck, Hourglass)
-    bad, hooks = [], []
-
-    def hook(name):
-        def record(module, inputs, out):
-            want = torch.float32 if name == "conv1" else torch.bfloat16
-            if inputs[0].dtype != want or out.dtype != torch.bfloat16:
-                bad.append((name, inputs[0].dtype, out.dtype))
-        return record
-
-    for name, module in model.named_modules():
-        if isinstance(module, checked):
-            hooks.append(module.register_forward_hook(hook(name)))
-    try:
-        with torch.inference_mode(), autocast(torch.bfloat16, x.device):
-            outs = model(x)
-    finally:
-        for h in hooks:
-            h.remove()
-    bad += [(f"heatmaps.{i}", torch.bfloat16, o.dtype)
-            for i, o in enumerate(outs) if o.dtype != torch.float32]
-    return len(hooks) + len(outs), bad
 
 
 def get_pose_net(cfg) -> HourglassNet:

@@ -1,0 +1,188 @@
+"""HRNet pose backbone (Sun et al., CVPR 2019), NCHW PyTorch.
+
+Counterpart of ``fhpe_tpu/models/pose_hrnet.py`` (FPD's COCO pair: W48
+teacher, W32 student).  Module names follow the reference's torch layout,
+so ``state_dict()`` keys are exactly what
+``fhpe_tpu.utils.torch_import.import_hrnet`` reads and the reference's
+published ``.pth`` files load as they are:
+
+* stem ``conv1``, ``bn1``, ``conv2``, ``bn2``; ``layer1.{b}`` (four
+  Bottleneck-64, ``downsample.{0,1}`` on the first);
+* ``transition{s-1}.{i}`` builds stage ``s``'s inputs: ``.{0,1}`` (conv,
+  BN) where an existing branch changes width, ``.{k}.{0,1}`` for the
+  strided chain that creates a new branch, nothing where it is identity;
+* ``stage{s}.{m}.branches.{b}.{blk}`` and
+  ``stage{s}.{m}.fuse_layers.{i}.{j}``: ``.{0,1}`` (1x1 conv, BN, then a
+  nearest upsample) for j > i, ``.{k}.{0,1}`` (strided 3x3 conv, BN, ReLU
+  but the last) for j < i;
+* ``final_layer`` on the highest-resolution branch only (the last stage-4
+  module has ``multi_scale_output=False``).
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .common import (BasicBlock, Bottleneck, UpsampleNearest, batch_norm,
+                     conv)
+
+BLOCKS = {"BASIC": BasicBlock, "BOTTLENECK": Bottleneck}
+
+
+def _conv_bn(in_ch: int, out_ch: int, kernel: int, stride: int,
+             relu: bool) -> nn.Sequential:
+    layers = [conv(in_ch, out_ch, kernel, stride, bias=False),
+              batch_norm(out_ch)]
+    if relu:
+        layers.append(nn.ReLU())
+    return nn.Sequential(*layers)
+
+
+def _branch(block, inplanes: int, planes: int, num_blocks: int):
+    """``num_blocks`` blocks at ``planes`` (the first may project)."""
+    out_ch = planes * block.expansion
+    layers = [block(inplanes, planes, downsample=inplanes != out_ch)]
+    layers += [block(out_ch, planes) for _ in range(1, num_blocks)]
+    return nn.Sequential(*layers)
+
+
+class HighResolutionModule(nn.Module):
+    """Per-branch residual chains, then the full fuse matrix summed and
+    ReLU'd per output branch (only branch 0 when not
+    ``multi_scale_output``)."""
+
+    def __init__(self, block: str, num_blocks: Sequence[int],
+                 num_channels: Sequence[int], in_channels: Sequence[int],
+                 multi_scale_output: bool = True):
+        super().__init__()
+        cls = BLOCKS[block]
+        nb = len(num_channels)
+        out_ch = [c * cls.expansion for c in num_channels]
+        self.branches = nn.ModuleList(
+            _branch(cls, in_channels[b], num_channels[b], num_blocks[b])
+            for b in range(nb))
+        self.fuse_layers = None
+        if nb > 1:
+            self.fuse_layers = nn.ModuleList(
+                nn.ModuleList(self._fuse(i, j, out_ch) for j in range(nb))
+                for i in range(nb if multi_scale_output else 1))
+
+    @staticmethod
+    def _fuse(i: int, j: int, ch: Sequence[int]):
+        if j == i:
+            return None
+        if j > i:   # low -> high resolution
+            return nn.Sequential(conv(ch[j], ch[i], 1, bias=False),
+                                 batch_norm(ch[i]),
+                                 UpsampleNearest(2 ** (j - i)))
+        steps = i - j   # high -> low: strided 3x3 chain
+        return nn.Sequential(*(
+            _conv_bn(ch[j], ch[i] if k == steps - 1 else ch[j], 3, 2,
+                     relu=k < steps - 1)
+            for k in range(steps)))
+
+    def forward(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        xs = [branch(x) for branch, x in zip(self.branches, xs)]
+        if self.fuse_layers is None:
+            return xs
+        fused = []
+        for row in self.fuse_layers:
+            y = None
+            for j, (layer, x) in enumerate(zip(row, xs)):
+                t = x if layer is None else layer(x)
+                y = t if y is None else y + t
+            fused.append(F.relu(y))
+        return fused
+
+
+def _transition(prev: Sequence[int], cur: Sequence[int]) -> nn.ModuleList:
+    layers = []
+    for i, ch in enumerate(cur):
+        if i < len(prev):
+            # Reference quirk kept: a non-identity transition on an existing
+            # branch reads the LOWEST-resolution input (forward below), so
+            # its conv takes prev[-1] channels.  In every shipped config it
+            # is reached only from the single stage-1 branch.
+            layers.append(_conv_bn(prev[-1], ch, 3, 1, relu=True)
+                          if ch != prev[i] else None)
+        else:   # a new branch: strided convs from the lowest-res branch
+            steps = i + 1 - len(prev)
+            layers.append(nn.Sequential(*(
+                _conv_bn(prev[-1], ch if k == steps - 1 else prev[-1], 3, 2,
+                         relu=True)
+                for k in range(steps))))
+    return nn.ModuleList(layers)
+
+
+class PoseHighResolutionNet(nn.Module):
+    """HRNet; ``forward`` returns one ``(B, J, H/4, W/4)`` heatmap tensor
+    in at least float32 (bf16 compute under autocast is cast up, as
+    ``fhpe_tpu`` does)."""
+
+    flow_blocks = (BasicBlock, Bottleneck, UpsampleNearest)
+
+    def __init__(self, stage2: dict, stage3: dict, stage4: dict,
+                 num_joints: int = 17, final_conv_kernel: int = 1):
+        super().__init__()
+        self.conv1 = conv(3, 64, 3, 2, bias=False)
+        self.bn1 = batch_norm(64)
+        self.conv2 = conv(64, 64, 3, 2, bias=False)
+        self.bn2 = batch_norm(64)
+        self.layer1 = _branch(Bottleneck, 64, 64, 4)
+
+        prev = [256]
+        for s, scfg in ((2, stage2), (3, stage3), (4, stage4)):
+            exp = BLOCKS[scfg["BLOCK"]].expansion
+            cur = [c * exp for c in scfg["NUM_CHANNELS"]]
+            setattr(self, f"transition{s - 1}", _transition(prev, cur))
+            n = scfg["NUM_MODULES"]
+            setattr(self, f"stage{s}", nn.Sequential(*(
+                HighResolutionModule(
+                    scfg["BLOCK"], scfg["NUM_BLOCKS"], scfg["NUM_CHANNELS"],
+                    cur, multi_scale_output=not (s == 4 and m == n - 1))
+                for m in range(n))))
+            prev = cur
+
+        self.final_layer = nn.Conv2d(
+            prev[0], num_joints, final_conv_kernel,
+            padding=1 if final_conv_kernel == 3 else 0)
+        self.init_weights()
+
+    def init_weights(self) -> None:
+        """Reference init: conv kernels normal(0, 0.001), conv biases 0,
+        BatchNorm weight 1 and bias 0."""
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                nn.init.normal_(m.weight, std=0.001)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.BatchNorm2d):
+                nn.init.ones_(m.weight)
+                nn.init.zeros_(m.bias)
+
+    def forward(self, x) -> torch.Tensor:
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.relu(self.bn2(self.conv2(x)))
+        xs = [self.layer1(x)]
+        for s in (2, 3, 4):
+            trans = getattr(self, f"transition{s - 1}")
+            xs = [xs[i] if t is None else t(xs[-1])
+                  for i, t in enumerate(trans)]
+            xs = getattr(self, f"stage{s}")(xs)
+        out = self.final_layer(xs[0])
+        return out.to(torch.promote_types(torch.float32, out.dtype))
+
+
+def get_pose_net(cfg) -> PoseHighResolutionNet:
+    extra = cfg.MODEL.EXTRA
+    return PoseHighResolutionNet(
+        stage2=dict(extra.STAGE2),
+        stage3=dict(extra.STAGE3),
+        stage4=dict(extra.STAGE4),
+        num_joints=cfg.MODEL.NUM_JOINTS,
+        final_conv_kernel=extra.FINAL_CONV_KERNEL,
+    )

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``ops/csrc/*.cu``).
 
 The sources have a plain C interface, so ``nvcc`` compiles them in
-seconds into one shared library, loaded with ``ctypes``.  The library
+seconds (one ``nvcc -c`` per source, all started together) and links them
+into one shared library, loaded with ``ctypes``.  The library
 lands in ``build/fhpe_tpu_torch/<hash>/libfhpe_kernels.so`` beside the
 package, keyed by a hash of the sources and the compiler flags, so a
 changed source is rebuilt and an unchanged one is loaded as it is.
@@ -22,7 +23,7 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "fhpe_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 LIB_NAME = "libfhpe_kernels.so"
 
 
@@ -53,27 +54,39 @@ def library_path() -> Path:
     return _BUILD_ROOT / _source_hash() / LIB_NAME
 
 
+def _run(procs) -> None:
+    """Wait for every (cmd, Popen); raise with the output of any failure."""
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def _start(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` unless the library for these sources exists."""
     out = library_path()
     if out.is_file():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    # compile to a temporary name, then rename: no process ever loads a
+    nvcc = _nvcc()
+    # compile to temporary names, then rename: no process ever loads a
     # half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [os.path.join(tmp, f"{src.stem}.o") for src in _sources()]
+        _run([_start([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)])
+              for src, obj in zip(_sources(), objs)])
+        lib = os.path.join(tmp, LIB_NAME)
+        _run([_start([nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs])])
+        os.replace(lib, out)
     return out
 
 
@@ -84,6 +97,13 @@ def load_library() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.fhpe_decode_heatmaps.argtypes = [vp, vp, vp, ci, ci, ci, ci, vp]
     lib.fhpe_decode_heatmaps.restype = ci
+    lib.fhpe_pairwise_oks.argtypes = [vp, vp, vp, vp, ci, ci,
+                                      ctypes.POINTER(ctypes.c_float),
+                                      ctypes.c_float, vp]
+    lib.fhpe_pairwise_oks.restype = ci
+    lib.fhpe_greedy_nms_mask.argtypes = [vp, vp, vp, vp, ci, ctypes.c_float,
+                                         vp]
+    lib.fhpe_greedy_nms_mask.restype = ci
     lib.fhpe_cuda_error_string.argtypes = [ci]
     lib.fhpe_cuda_error_string.restype = ctypes.c_char_p
     return lib

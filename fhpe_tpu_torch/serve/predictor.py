@@ -33,7 +33,7 @@ from torch import nn
 
 from ..data import dataset_meta
 from ..geometry.flip import flip_back_torch, flip_pair_permutation
-from ..models import get_pose_net
+from ..models import get_pose_net, is_multi_output
 from ..ops.decode import decode_heatmaps, make_inverse_transforms
 from ..ops.preprocess import normalize_images
 from ..utils.dtype import autocast, compute_dtype
@@ -86,6 +86,7 @@ class Predictor:
         param_dtype = torch.float64 if self.dtype == torch.float64 \
             else torch.float32
         self.model = model.to(device=self.device, dtype=param_dtype).eval()
+        self._multi = is_multi_output(model)
         self._input_dtype = param_dtype
 
         self.image_size = tuple(int(v) for v in cfg.MODEL.IMAGE_SIZE)  # (W,H)
@@ -118,7 +119,8 @@ class Predictor:
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         with autocast(self.dtype, self.device):
-            return self.model(x)[-1]
+            out = self.model(x)
+        return out[-1] if self._multi else out
 
     @torch.inference_mode()
     def merged_heatmaps(self, images: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,11 @@
 """Where the serve step's time goes, on one CUDA device.
 
-    python3 -m fhpe_tpu_torch.tools.profile_serve [--out PATH]
+    python3 -m fhpe_tpu_torch.tools.profile_serve [--cfg YAML] [--out PATH]
 
-Serves the FPD student (``experiments/mpii/hourglass/hg4_128_student.yaml``)
-in bf16 with the flip test on, batch 32, random weights from a seed.
+Serves a model (by default the FPD student,
+``experiments/mpii/hourglass/hg4_128_student.yaml``; ``--cfg`` takes any
+experiment file, e.g. HRNet-W32's) in bf16 with the flip test on, batch
+32, random weights from a seed.
 Comparisons run in one process and in turns (A, B, B, A, ...), because
 the host's speed drifts within and between runs:
 
@@ -107,13 +109,16 @@ def wall_s(fn) -> float:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--cfg", default=str(STUDENT),
+                    help="experiment YAML of the model to serve")
     ap.add_argument("--out", default=str(REPO / "build" /
                                          "profile_serve.json"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
 
-    p = make_predictor(STUDENT, seed=0)
+    cfg_path = Path(args.cfg).resolve()
+    p = make_predictor(cfg_path, seed=0)
     p.warmup()
     crops, centers, scales = request(p, CROPS, seed=1)
     chunks = -(-CROPS // p.batch_size)
@@ -171,7 +176,7 @@ def main(argv=None) -> dict:
 
     out = {
         "card": card_label(),
-        "config": str(STUDENT.relative_to(REPO)),
+        "config": str(cfg_path.relative_to(REPO)),
         "batch": b, "crops": CROPS, "dtype": "bfloat16",
         "images_per_s": rates,
         "forward": fwd,

@@ -59,6 +59,72 @@ def _hourglass_layers(num_stacks: int, num_blocks: int,
             yield "conv", f"score_.{s}", (f"score_{s}",)
 
 
+def _postact_block(tprefix: str, path: Tuple[str, ...], kind: str,
+                   downsample: bool):
+    """HRNet BasicBlock / Bottleneck, as ``_import_block_postact``."""
+    n = 2 if kind == "BASIC" else 3
+    for k in range(1, n + 1):
+        yield "conv", f"{tprefix}.conv{k}", path + (f"conv{k}",)
+        yield "bn", f"{tprefix}.bn{k}", path + (f"bn{k}",)
+    if downsample:
+        yield "conv", f"{tprefix}.downsample.0", path + ("ds_conv",)
+        yield "bn", f"{tprefix}.downsample.1", path + ("ds_bn",)
+
+
+def _hrnet_layers(extra) -> Iterator[Tuple[str, str, tuple]]:
+    """(kind, torch prefix, flax path) for every conv / BN of HRNet.
+
+    Mirrors ``import_hrnet`` (``fhpe_tpu/utils/torch_import.py``): torch
+    ``transition{s-1}`` builds stage ``s``'s inputs (flax
+    ``transition{s}``), ``stage{s}.{m}`` is flax ``stage{s}_m{m}``, and the
+    last stage-4 module fuses into branch 0 only.
+    """
+    yield "conv", "conv1", ("conv1",)
+    yield "bn", "bn1", ("bn1",)
+    yield "conv", "conv2", ("conv2",)
+    yield "bn", "bn2", ("bn2",)
+    for b in range(4):
+        yield from _postact_block(f"layer1.{b}", ("layer1", f"b{b}"),
+                                  "BOTTLENECK", downsample=b == 0)
+    prev = [256]
+    for s in (2, 3, 4):
+        scfg = extra[f"STAGE{s}"]
+        kind = scfg["BLOCK"]
+        exp = 1 if kind == "BASIC" else 4
+        cur = [c * exp for c in scfg["NUM_CHANNELS"]]
+        tn, tpath = f"transition{s - 1}", f"transition{s}"
+        for i, ch in enumerate(cur):
+            if i < len(prev):
+                if ch != prev[i]:
+                    yield "conv", f"{tn}.{i}.0", (tpath, f"t{i}_conv")
+                    yield "bn", f"{tn}.{i}.1", (tpath, f"t{i}_bn")
+                continue
+            for k in range(i + 1 - len(prev)):
+                yield "conv", f"{tn}.{i}.{k}.0", (tpath, f"t{i}_conv{k}")
+                yield "bn", f"{tn}.{i}.{k}.1", (tpath, f"t{i}_bn{k}")
+        nb, n = len(cur), scfg["NUM_MODULES"]
+        for m in range(n):
+            mpath = f"stage{s}_m{m}"
+            for b in range(nb):
+                for blk in range(scfg["NUM_BLOCKS"][b]):
+                    yield from _postact_block(
+                        f"stage{s}.{m}.branches.{b}.{blk}",
+                        (mpath, f"branch{b}", f"b{blk}"), kind, False)
+            n_out = 1 if s == 4 and m == n - 1 else nb
+            for i in range(n_out if nb > 1 else 0):
+                for j in range(nb):
+                    base, fpath = (f"stage{s}.{m}.fuse_layers.{i}.{j}",
+                                   (mpath, f"fuse{i}_{j}"))
+                    if j > i:
+                        yield "conv", f"{base}.0", fpath + ("conv",)
+                        yield "bn", f"{base}.1", fpath + ("bn",)
+                    for k in range(i - j):
+                        yield "conv", f"{base}.{k}.0", fpath + (f"conv{k}",)
+                        yield "bn", f"{base}.{k}.1", fpath + (f"bn{k}",)
+        prev = cur
+    yield "conv", "final_layer", ("final_layer",)
+
+
 def _get(tree: dict, path: Tuple[str, ...]):
     for p in path:
         tree = tree[p]
@@ -72,19 +138,22 @@ def state_dict_from_jax(cfg, variables: dict) -> Dict[str, torch.Tensor]:
     ``weight/bias/running_mean/running_var``; ``num_batches_tracked`` = 0.
     A conv without a bias in the tree (``TPU.DEAD_BIAS_SKIP``) gets none.
     """
-    if cfg.MODEL.NAME != "hourglass":
+    extra = cfg.MODEL.EXTRA
+    if cfg.MODEL.NAME == "hourglass":
+        layers = _hourglass_layers(extra.NUM_STACKS, extra.NUM_BLOCKS)
+    elif cfg.MODEL.NAME == "pose_hrnet":
+        layers = _hrnet_layers(extra)
+    else:
         raise NotImplementedError(
             f"state_dict_from_jax: MODEL.NAME '{cfg.MODEL.NAME}' is not "
             f"ported yet (ROADMAP.md queue A, item 9)")
     params, stats = variables["params"], variables["batch_stats"]
-    extra = cfg.MODEL.EXTRA
 
     def t(a):
         return torch.tensor(np.asarray(a, dtype=np.float32))
 
     sd: Dict[str, torch.Tensor] = {}
-    for kind, tkey, path in _hourglass_layers(extra.NUM_STACKS,
-                                              extra.NUM_BLOCKS):
+    for kind, tkey, path in layers:
         if kind == "conv":
             leaf = _get(params, path + ("Conv_0",))
             sd[f"{tkey}.weight"] = t(np.transpose(leaf["kernel"],

@@ -26,6 +26,7 @@ from fhpe_tpu.models import get_pose_net as get_pose_net_jax
 from fhpe_tpu.models.hourglass import Bottleneck as BottleneckJax
 from fhpe_tpu.serve import Predictor as PredictorJax
 from fhpe_tpu_torch.models import get_pose_net, hourglass
+from fhpe_tpu_torch.models.common import bf16_flow_violations
 from fhpe_tpu_torch.serve import Predictor
 from fhpe_tpu_torch.utils.convert import state_dict_from_jax
 from fhpe_tpu_torch.utils.dtype import autocast
@@ -129,7 +130,7 @@ def test_bf16_dtype_flow(tiny, monkeypatch):
     that emits float32 must be caught."""
     _, _, port = tiny
     x = torch.randn(2, 3, 64, 128)
-    checked, bad = hourglass.bf16_flow_violations(port, x)
+    checked, bad = bf16_flow_violations(port, x)
     modules = sum(isinstance(m, (torch.nn.Conv2d, torch.nn.BatchNorm2d,
                                  hourglass.Bottleneck, hourglass.Hourglass))
                   for m in port.modules())
@@ -139,7 +140,7 @@ def test_bf16_dtype_flow(tiny, monkeypatch):
     monkeypatch.setattr(hourglass, "upsample_nearest",
                         lambda t: torch.nn.functional.interpolate(
                             t, scale_factor=2, mode="nearest").float())
-    _, bad = hourglass.bf16_flow_violations(port, x)
+    _, bad = bf16_flow_violations(port, x)
     assert bad and bad[0][0].startswith("hg.0")
 
 

@@ -114,6 +114,6 @@ def test_eval_forward_matches_jax(dead_bias_skip):
 
 def test_unported_models_raise():
     cfg = _cfg(2, 32)
-    cfg.MODEL.NAME = "pose_hrnet"
+    cfg.MODEL.NAME = "pose_resnet"
     with pytest.raises(NotImplementedError):
         get_pose_net(cfg)

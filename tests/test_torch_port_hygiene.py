@@ -1,7 +1,9 @@
 """The port stands without JAX, and its copies of fhpe_tpu's host code
-(config, affine geometry, dataset constants) stay equal to the originals."""
+(config, affine geometry, dataset constants, host NMS, COCO glue and
+evaluator) stay equal to the originals."""
 
 import glob
+import inspect
 import os
 import subprocess
 import sys
@@ -10,11 +12,16 @@ import numpy as np
 import pytest
 
 from fhpe_tpu import config as config_jax
+from fhpe_tpu.data import coco as coco_jax
 from fhpe_tpu.data import dataset_meta as dataset_meta_jax
+from fhpe_tpu.eval import coco_eval as coco_eval_jax
 from fhpe_tpu.geometry import affine as affine_jax
+from fhpe_tpu.ops import nms as nms_jax
 from fhpe_tpu_torch import config
-from fhpe_tpu_torch.data import dataset_meta
+from fhpe_tpu_torch.data import coco, dataset_meta
+from fhpe_tpu_torch.eval import coco_eval
 from fhpe_tpu_torch.geometry import affine
+from fhpe_tpu_torch.ops import nms
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXPERIMENTS = sorted(os.path.relpath(p, REPO) for p in glob.glob(
@@ -24,20 +31,30 @@ EXPERIMENTS = sorted(os.path.relpath(p, REPO) for p in glob.glob(
 def test_port_imports_no_jax():
     """In a fresh interpreter (this one already holds JAX via conftest),
     with ``FHPE_PLATFORM`` set: ``import fhpe_tpu`` imports JAX then, so
-    the port must not touch the JAX package at all."""
-    code = ("import sys\n"
-            "import fhpe_tpu_torch, fhpe_tpu_torch.serve, "
-            "fhpe_tpu_torch.ops.decode, fhpe_tpu_torch.config, "
-            "fhpe_tpu_torch.utils.convert\n"
+    the port must not touch the JAX package at all.  Every module of the
+    port is imported (found by walking the package), and ``chip_smoke.py``
+    by its path, without running its ``main``."""
+    code = ("import importlib, importlib.util, pkgutil, sys\n"
+            "import fhpe_tpu_torch\n"
+            "names = [m.name for m in pkgutil.walk_packages("
+            "fhpe_tpu_torch.__path__, 'fhpe_tpu_torch.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "spec = importlib.util.spec_from_file_location("
+            "'chip_smoke', 'chip_smoke.py')\n"
+            "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
             "fhpe_tpu_torch.config.load_config("
-            "'experiments/mpii/hourglass/hg4_128_student.yaml')\n"
+            "'experiments/coco/hrnet/w32_256x192_adam_lr1e-3.yaml')\n"
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'fhpe_tpu'))\n"
-            "assert not bad, bad\n")
+            "assert not bad, bad\n"
+            "print(len(names))\n")
     env = dict(os.environ, FHPE_PLATFORM="cpu")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+    # every module of the port, the new ones of the COCO slice among them
+    assert int(proc.stdout.split()[-1]) >= 30, proc.stdout
 
 
 @pytest.mark.parametrize("path", EXPERIMENTS)
@@ -95,3 +112,50 @@ def test_dataset_meta_copy_equal(name):
         assert got[k] == ref[k], k
     with pytest.raises(KeyError):
         dataset_meta("lsp")
+
+
+def _same_source(port_obj, ref_obj):
+    assert inspect.getsource(port_obj) == inspect.getsource(ref_obj), \
+        port_obj.__qualname__
+
+
+@pytest.mark.parametrize("name", ["nms", "oks_iou", "oks_nms", "_rescore",
+                                  "soft_oks_nms"])
+def test_host_nms_copy_equal(name):
+    """``ops/nms.py`` is a copy: the same source, the same sigmas, and the
+    same keep-lists on random detections."""
+    _same_source(getattr(nms, name), getattr(nms_jax, name))
+    np.testing.assert_array_equal(nms.COCO_SIGMAS, nms_jax.COCO_SIGMAS)
+    rng = np.random.RandomState(0)
+    db = [{"keypoints": rng.uniform(0, 200, (17, 3)), "area":
+           rng.uniform(1e3, 1e4), "score": rng.uniform()} for _ in range(12)]
+    for k in db[::3]:
+        k["keypoints"] = db[0]["keypoints"] + rng.normal(0, 1, (17, 3))
+    assert nms.oks_nms(db, 0.5) == nms_jax.oks_nms(db, 0.5)
+    assert nms.soft_oks_nms(db, 0.5) == nms_jax.soft_oks_nms(db, 0.5)
+
+
+@pytest.mark.parametrize("name", ["CocoIndex", "xywh2cs",
+                                  "write_results_json"])
+def test_coco_host_copy_equal(name):
+    """The host parts of ``data/coco.py`` are copies; ``rescore_and_nms``
+    differs only in running its hard NMS through ``oks_nms_device``
+    (held equal in tests/test_torch_coco_eval.py)."""
+    _same_source(getattr(coco, name), getattr(coco_jax, name))
+    assert coco.NUM_JOINTS == coco_jax.NUM_JOINTS
+    for box in ([10, 20, 30, 90], [0, 0, 200, 50], [5.5, 6, 48, 64]):
+        for got, ref in zip(coco.xywh2cs(*box, 0.75),
+                            coco_jax.xywh2cs(*box, 0.75)):
+            np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("name", ["_dt_area_bbox", "compute_oks",
+                                  "_evaluate_img", "_accumulate",
+                                  "CocoKeypointEval"])
+def test_coco_eval_copy_equal(name):
+    """``eval/coco_eval.py`` is a copy: the same source and constants."""
+    _same_source(getattr(coco_eval, name), getattr(coco_eval_jax, name))
+    for const in ("OKS_THRS", "RECALL_THRS", "AREA_RNGS", "MAX_DETS",
+                  "STATS_NAMES"):
+        np.testing.assert_array_equal(getattr(coco_eval, const),
+                                      getattr(coco_eval_jax, const))
