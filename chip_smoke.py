@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``fhpe_tpu_torch``) on one GPU.
 
-Drives the port's two paths end to end, through the entry points a user
-calls, with random weights from a seed:
+Drives the port's three paths end to end, through the entry points a
+user calls, with random weights from a seed:
 
 * serving the FPD hourglass (MPII 256x256, 16 joints): the student
   (4 stacks x 128 features) and the teacher (8 x 256) at full width,
@@ -10,7 +10,12 @@ calls, with random weights from a seed:
 * the COCO path of the FPD student HRNet-W32 (256x192, 17 joints, bf16,
   batch 32, flip test on): ``Predictor.predict_crops`` ->
   ``cli.common.make_evaluate_fn`` (rescore, OKS-NMS on the card through
-  the pairwise-OKS and greedy kernels, results JSON, COCO AP).
+  the pairwise-OKS and greedy kernels, results JSON, COCO AP);
+* FPD training of the hourglass student by the teacher (bf16, batch 32,
+  Adam): ``train.create_train_state`` -> ``make_batch_preprocessor`` ->
+  ``make_fpd_train_step`` (the 3x3 filter gradients through the P4
+  kernel, the PCK argmaxes through the decode kernel), then validation:
+  ``make_eval_step`` -> ``make_evaluate_fn`` (MPII PCKh).
 
 Phases; any failure raises and exits non-zero:
 
@@ -39,7 +44,27 @@ Phases; any failure raises and exits non-zero:
     the OKS and greedy kernels ran once per image; the NMS time per
     image; (b) the W32 Predictor's own outputs on crops at the ground
     truth boxes: decode launches == chunks, NMS launches == images, the
-    10 stats finite.
+    10 stats finite;
+11. P4 (3x3 filter gradient) kernel against its plain version on every
+    3x3 conv shape of the student at batch 32 and on edge cases, bf16 and
+    float32, planted inputs: within 1e-5 of max|dW|, two runs bit-equal;
+    then the device time of the kernel, its plain version and cuDNN's
+    weight gradient (``aten.convolution_backward``, timed, never used);
+12. the FPD train step at full width (bf16, batch 32, DEAD_BIAS_SKIP as
+    bench.py trains): P4 launches == 59 and decode launches == 2 per
+    step, finite losses, the loss falling over 20 steps on one batch,
+    warm train images/s, and a profile (idle share, device ops per step,
+    kernel ms by group, P4 ms per step against cuDNN wgrad on the same
+    59 shapes);
+13. float32 train-step parity (TF32 off): one FPD step at full width,
+    batch 2, on the card against the same port on the CPU (bars that
+    allow a float32 step's chaos), and on the card with P4 against the
+    card with cuDNN's filter gradient in its place (tight bars);
+14. validation of the trained student: ``make_eval_step`` (flip test,
+    a padded last batch; 3 decode launches per batch, no P4) on crops of
+    a synthetic MPII set, then PCKh through ``make_evaluate_fn``:
+    predictions planted at the ground truth give Mean 100, the step's
+    own give finite stats.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; comparisons of a kernel with its plain version run outside
@@ -89,10 +114,44 @@ PARITY_PREDS_ATOL = 1e-3
 COCO_IMAGES = 64
 COCO_SET = "val2017"
 OKS_MARGIN = 1e-5          # float32 vs float64 OKS-NMS may differ inside it
+TRAIN_BATCH = 32
+TRAIN_STEPS = 20           # on one repeated batch: the loss must fall
+P4_PER_STEP = 59           # 3x3 stride-1 convs of the student (tests pin it)
+K1_PER_TRAIN_STEP = 2      # the PCK counts' argmaxes: output and target
+K1_PER_EVAL_BATCH = 3      # the decode and the two PCK argmaxes
+WGRAD_TIMED = (32, 64, 64, 64)   # the student's 64x64 conv2s, batch 32
+# P4 kernel against its plain version: with bf16 inputs every product is
+# exact in float32, so only the order of the float32 sums differs (with
+# float32 inputs also where a product is fused into its sum).
+WGRAD_REL_TOL = 1e-5
+MPII_PEOPLE = 56           # two eval batches of 32, the last one padded
+# float32 train-step parity (one FPD step at full width, batch 2, TF32
+# off).  A float32 step is only good to a few percent in its gradients:
+# train-mode BatchNorm over two samples amplifies reduction-order
+# rounding.  `python3 -m fhpe_tpu_torch.tools.train_parity` on an H100
+# measured, against the same step in float64 on the CPU: the CPU's
+# float32 step 2.1e-2 and the card's 3.4e-2 relative L2 in Adam's first
+# moment (worst tensor 0.22 and 0.28), losses 2e-6, BN running stats 6e-5
+# of a tensor's max; card against CPU 3.7e-2 (worst tensor 0.28), and
+# 0.61% of the parameters with a live gradient moved apart by more than
+# 1% of lr.  Card against CPU is held to bars that allow that chaos:
+TRAIN_PARITY_LOSS_RTOL = 1e-5
+TRAIN_PARITY_STATS_RTOL = 2e-3
+TRAIN_PARITY_MOMENT_L2 = 0.1
+TRAIN_PARITY_MOMENT_TENSOR = 0.5
+TRAIN_PARITY_PARAMS_OFF = 2e-2   # share of live elements off by > 1% lr
+# ... and P4 inside the step is held tightly against cuDNN's filter
+# gradient in its place on the card, the rest of the step unchanged
+# (measured 4.7e-6 relative L2, worst tensor 2.0e-5, no parameter off;
+# losses and BN statistics come before the backward and are equal):
+WGRAD_STEP_MOMENT_L2 = 1e-4
+WGRAD_STEP_MOMENT_TENSOR = 1e-3
+WGRAD_STEP_PARAMS_OFF = 1e-4
 
 # Card peaks for the bound (NVIDIA H100 SXM data sheet, dense).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12    # tensor cores, bf16 in, float32 accumulate
 # float32 operations K2 does: per (i, j, joint) 2 subtractions, 4
 # multiplications, 2 additions and exp (counted as 2); per (i, j) the
 # denominator (2 additions, 2 divisions) and the final division.
@@ -105,6 +164,8 @@ KERNELS = {
                      "replaces": "fhpe_tpu/ops/nms_jax.py:75"},
     "greedy_nms_mask": {"source": "fhpe_tpu_torch/ops/csrc/nms.cu",
                         "replaces": "fhpe_tpu/ops/nms_jax.py:126"},
+    "conv3x3_wgrad": {"source": "fhpe_tpu_torch/ops/csrc/conv_wgrad.cu",
+                      "replaces": "scripts/probe/dw_pallas_probe.py:32"},
 }
 
 
@@ -132,10 +193,12 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def bound(nbytes: float, ops: float) -> dict:
+def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S
+          ) -> dict:
     """The least time the card could take: bytes over the HBM rate or
-    float32 operations over the peak rate, whichever is larger."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    operations over the peak rate for their type (float32 by default),
+    whichever is larger."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return {"bound_ms": max(by_bytes, by_ops) * 1e3,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
@@ -143,10 +206,11 @@ def bound(nbytes: float, ops: float) -> dict:
 # -- launch counts of the main path -----------------------------------------
 
 def _counters():
-    from fhpe_tpu_torch.ops import decode, nms_torch
+    from fhpe_tpu_torch.ops import conv_wgrad, decode, nms_torch
     return {"decode_heatmaps": (decode, "decode_kernel_launches"),
             "pairwise_oks": (nms_torch, "pairwise_oks_launches"),
-            "greedy_nms_mask": (nms_torch, "greedy_nms_launches")}
+            "greedy_nms_mask": (nms_torch, "greedy_nms_launches"),
+            "conv3x3_wgrad": (conv_wgrad, "conv_wgrad_launches")}
 
 
 def main_path_run(totals: Counter, fn):
@@ -407,9 +471,10 @@ def phase_serve(phase, cfg, model, device, requests, seed, totals,
     launches = counts["decode_heatmaps"]
     for n, (preds, maxvals) in zip(requests, outs):
         check_outputs(phase, preds, maxvals, n, num_joints)
-    if launches != on_card(device, chunks):
+    if launches != on_card(device, chunks) or counts["conv3x3_wgrad"]:
         raise AssertionError(f"{phase}: {launches} decode kernel launches "
-                             f"for {chunks} chunks")
+                             f"for {chunks} chunks, "
+                             f"{counts['conv3x3_wgrad']} P4 launches")
     log(phase, f"requests {requests}: shapes and finite ok, "
         f"decode_kernel_launches {launches} == chunks {chunks}")
     check_kernel_path_on_chunk(phase, p, *max(data, key=lambda d: len(d[0])))
@@ -612,6 +677,353 @@ def phase_coco_predictor(p, cfg, gt, device, out_dir, totals) -> None:
         f"finite: " + ", ".join(f"{k} {v:.4f}" for k, v in nv.items()))
 
 
+# -- training -----------------------------------------------------------------
+
+def phase_wgrad_kernel(device) -> dict:
+    """P4 kernel against its plain version on planted cases at every 3x3
+    conv shape of the student (batch 32) and edge cases, bf16 and
+    float32; two runs bit-equal; timings at WGRAD_TIMED in bf16."""
+    import torch
+    from fhpe_tpu_torch.ops.conv_wgrad import (conv3x3_wgrad,
+                                               conv3x3_wgrad_plain)
+    from fhpe_tpu_torch.ops.conv_wgrad_cases import (EDGE_SHAPES,
+                                                     STUDENT_SHAPES,
+                                                     planted_wgrad_cases)
+    from fhpe_tpu_torch.tools.train_parity import cudnn_wgrad
+    from fhpe_tpu_torch.utils.profiling import device_ms
+
+    max_err, max_rel, checked = 0.0, 0.0, 0
+    for shape in STUDENT_SHAPES + EDGE_SHAPES:
+        for name, x, dy in planted_wgrad_cases(*shape, seed=sum(shape)):
+            for dt in (torch.bfloat16, torch.float32):
+                xt = torch.from_numpy(x).to(device, dt)
+                dyt = torch.from_numpy(dy).to(device, dt)
+                k1, k2 = conv3x3_wgrad(xt, dyt), conv3x3_wgrad(xt, dyt)
+                ref = conv3x3_wgrad_plain(xt, dyt)
+                sync(device)
+                err = (k1 - ref).abs().max().item()
+                scale = ref.abs().max().item()
+                if not (torch.equal(k1, k2) and err <= WGRAD_REL_TOL * scale):
+                    raise AssertionError(
+                        f"P4 kernel on {name} {shape} {dt}: max|diff| {err} "
+                        f"against max|dW| {scale}, runs bit-equal "
+                        f"{torch.equal(k1, k2)}")
+                max_err = max(max_err, err)
+                max_rel = max(max_rel, err / scale if scale else 0.0)
+                checked += 1
+    log("wgrad", f"P4 kernel within {WGRAD_REL_TOL} of max|dW| of its plain "
+        f"version on {checked} cases (bf16 and float32; max|diff| "
+        f"{max_err:.3g}, {max_rel:.3g} of max|dW|), two runs bit-equal")
+
+    b, c, h, w = WGRAD_TIMED
+    # x and dy read once (bf16), dW written once (float32); 2 * 9 C^2
+    # operations per pixel on bf16 inputs
+    lim = bound(2 * 2 * b * c * h * w + 4 * 9 * c * c,
+                2 * 9 * c * c * b * h * w, BF16_OPS_PER_S)
+    out = {"max_abs_err": max_err, "ms": None, "plain_ms": None,
+           "library_ms": None, **lim}
+    if device.type != "cuda":
+        return out
+    _, x, dy = planted_wgrad_cases(*WGRAD_TIMED, seed=1)[0]
+    x, dy = (torch.from_numpy(a).to(device, torch.bfloat16) for a in (x, dy))
+    weight = torch.zeros((c, c, 3, 3), dtype=torch.bfloat16, device=device)
+
+    def kernel():
+        return conv3x3_wgrad(x, dy)
+
+    def plain():
+        return conv3x3_wgrad_plain(x, dy)
+
+    def library():
+        return cudnn_wgrad(x, dy, weight)
+
+    dp1, dk1, dk2, dp2 = (device_ms(f, 20) for f in (plain, kernel, kernel,
+                                                     plain))
+    dl = device_ms(library, 20)
+    out.update(ms=(dk1 + dk2) / 2, plain_ms=(dp1 + dp2) / 2, library_ms=dl)
+    log("wgrad", f"P4 {WGRAD_TIMED} bf16: device time per call (profiler) "
+        f"kernel {dk1:.4f}/{dk2:.4f} ms, plain {dp1:.4f}/{dp2:.4f} ms, cuDNN "
+        f"wgrad {dl:.4f} ms; bound {lim['bound_ms']:.5f} ms "
+        f"({lim['bound_by']}); kernel at "
+        f"{2 * 9 * c * c * b * h * w / out['ms'] / 1e9:.2f} TFLOP/s")
+    return out
+
+
+def check_finite(phase, metrics, keys=("loss", "pose_loss", "kd_loss")):
+    vals = {k: float(metrics[k]) for k in keys}
+    if not all(math.isfinite(v) for v in vals.values()):
+        raise AssertionError(f"{phase}: non-finite {vals}")
+    return vals
+
+
+def phase_fpd_train(device, totals, label):
+    """The FPD train step at full width; returns (state, step shapes of
+    P4, stats for the kernels line)."""
+    import torch
+    from fhpe_tpu_torch.models.common import Conv3x3
+    from fhpe_tpu_torch.tools.profile_serve import kernel_group
+    from fhpe_tpu_torch.tools.train_parity import (STUDENT_YAML, fpd_cfgs,
+                                                   train_batch)
+    from fhpe_tpu_torch.train import (create_train_state,
+                                      make_batch_preprocessor,
+                                      make_fpd_train_step)
+    from fhpe_tpu_torch.utils.profiling import busy_ms, device_events
+
+    scfg, tcfg = fpd_cfgs()
+    state = create_train_state(scfg, seeded_model(scfg, 0), device=device)
+    teacher = seeded_model(tcfg, 100).to(device)
+    step = make_fpd_train_step(scfg, teacher, tcfg,
+                               prepare=make_batch_preprocessor(scfg))
+    batch = train_batch(scfg, TRAIN_BATCH, seed=7, device=device)
+
+    shapes = []
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out: shapes.append(tuple(inp[0].shape)))
+        for m in state.model.modules() if isinstance(m, Conv3x3)]
+    t0 = time.perf_counter()
+    step(state, batch)      # cuDNN algorithm choice; the kernels load
+    sync(device)
+    for hk in hooks:
+        hk.remove()
+    log("train", f"first step {time.perf_counter() - t0:.2f} s (student "
+        f"{STUDENT_YAML.name}, teacher {TEACHER_YAML.name}, bf16, batch "
+        f"{TRAIN_BATCH}); {len(shapes)} 3x3 stride-1 convs in the student")
+
+    losses = []
+
+    def run():
+        for _ in range(TRAIN_STEPS):
+            losses.append(step(state, batch)[1])
+
+    _, counts = main_path_run(totals, run)
+    want = {"conv3x3_wgrad": on_card(device, P4_PER_STEP * TRAIN_STEPS),
+            "decode_heatmaps": on_card(device,
+                                       K1_PER_TRAIN_STEP * TRAIN_STEPS),
+            "pairwise_oks": 0, "greedy_nms_mask": 0}
+    if counts != want or len(shapes) != P4_PER_STEP:
+        raise AssertionError(f"train: launches {counts} for {TRAIN_STEPS} "
+                             f"steps, want {want}; {len(shapes)} convs")
+    first = check_finite("train", losses[0])
+    last = check_finite("train", losses[-1])
+    if not last["loss"] < first["loss"]:
+        raise AssertionError(f"train: loss {first['loss']} -> "
+                             f"{last['loss']} over {TRAIN_STEPS} steps")
+    log("train", f"{TRAIN_STEPS} steps on one batch: loss {first['loss']:.6f}"
+        f" -> {last['loss']:.6f} (pose {first['pose_loss']:.6f} -> "
+        f"{last['pose_loss']:.6f}, kd {first['kd_loss']:.6f} -> "
+        f"{last['kd_loss']:.6f}); launches per step: P4 "
+        f"{counts['conv3x3_wgrad'] / TRAIN_STEPS:g}, decode "
+        f"{counts['decode_heatmaps'] / TRAIN_STEPS:g}")
+
+    rates = []
+    for _ in range(3):
+        sync(device)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step(state, batch)
+        sync(device)
+        rates.append(5 * TRAIN_BATCH / (time.perf_counter() - t0))
+    log("train", f"warm FPD train step {sorted(rates)[1]:.1f} images/s "
+        f"(median of 3 x 5 steps, batch {TRAIN_BATCH}, bf16; teacher "
+        f"forward, student forward and backward, Adam) on {label}")
+    if device.type != "cuda":
+        return state, shapes
+
+    walls = []
+
+    def profiled():
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    events = device_events(profiled)
+    busy = busy_ms(events)
+    groups = Counter()
+    for e in events:
+        groups[kernel_group(e["name"]) if e["cat"] == "kernel"
+               else e["cat"]] += float(e["dur"]) / 1e3 / 3
+    log("train", f"3 steps under the profiler: {walls[0]:.1f} ms, device "
+        f"busy {busy:.1f} ms (idle share {1 - busy / walls[0]:.3f}); "
+        f"{len(events) / 3:.1f} device ops per step; ms per step by group: "
+        + ", ".join(f"{g} {v:.2f}" for g, v in groups.most_common()))
+    return state, shapes
+
+
+def phase_wgrad_step_shapes(device, shapes) -> None:
+    """P4 on the 59 shapes of one student step against cuDNN wgrad on the
+    same shapes and inputs (bf16), device time under the profiler."""
+    import torch
+    from fhpe_tpu_torch.ops.conv_wgrad import conv3x3_wgrad
+    from fhpe_tpu_torch.tools.train_parity import cudnn_wgrad
+    from fhpe_tpu_torch.utils.profiling import device_ms
+    if device.type != "cuda":
+        return
+    gen = torch.Generator(device=device).manual_seed(0)
+    inputs = {s: (torch.randn(s, device=device, generator=gen
+                              ).to(torch.bfloat16),
+                  torch.randn(s, device=device, generator=gen
+                              ).to(torch.bfloat16),
+                  torch.zeros((s[1], s[1], 3, 3), dtype=torch.bfloat16,
+                              device=device))
+              for s in set(shapes)}
+
+    def p4():
+        for s in shapes:
+            conv3x3_wgrad(*inputs[s][:2])
+
+    def library():
+        for s in shapes:
+            cudnn_wgrad(*inputs[s])
+
+    k1, l1, l2, k2 = (device_ms(f, 5) for f in (p4, library, library, p4))
+    flop = sum(2 * 9 * s[1] ** 2 * s[0] * s[2] * s[3] for s in shapes)
+    log("wgrad", f"the {len(shapes)} P4 shapes of one student step "
+        f"({flop / 1e9:.1f} GFLOP): P4 {k1:.3f}/{k2:.3f} ms, cuDNN wgrad "
+        f"{l1:.3f}/{l2:.3f} ms device time; bound "
+        f"{flop / BF16_OPS_PER_S * 1e3:.4f} ms at the bf16 peak")
+
+
+def phase_f32_train_parity(device) -> None:
+    """One float32 FPD step at full width, batch 2, from the same weights:
+    on the card (TF32 off) against the same port on the CPU, and on the
+    card with P4 against the card with cuDNN's filter gradient in its
+    place (``tools/train_parity.py`` runs the same steps and the float64
+    reference)."""
+    import torch
+    from fhpe_tpu_torch.tools.train_parity import (cudnn_in_p4s_place,
+                                                   describe, fpd_cfgs,
+                                                   one_fpd_step, step_diff,
+                                                   tf32_off, train_batch)
+
+    scfg, tcfg = fpd_cfgs("float32")
+    student, teacher = seeded_model(scfg, 0), seeded_model(tcfg, 100)
+    batch = train_batch(scfg, 2, seed=9, device="cpu")
+    with tf32_off():
+        card = one_fpd_step(scfg, tcfg, student, teacher, batch, device)
+        cpu = one_fpd_step(scfg, tcfg, student, teacher, batch, "cpu")
+        card_cudnn = (one_fpd_step(scfg, tcfg, student, teacher, batch,
+                                   device, cudnn_in_p4s_place)
+                      if device.type == "cuda" else card)
+    for run in (card, cpu):
+        check_finite("train-f32", run[1])
+
+    bad = []
+    for what, (a, b), (loss_tol, stats_tol, l2_tol, worst_tol, off_tol) in (
+            ("card vs CPU", (card, cpu),
+             (TRAIN_PARITY_LOSS_RTOL, TRAIN_PARITY_STATS_RTOL,
+              TRAIN_PARITY_MOMENT_L2, TRAIN_PARITY_MOMENT_TENSOR,
+              TRAIN_PARITY_PARAMS_OFF)),
+            ("P4 vs cuDNN wgrad in the step", (card, card_cudnn),
+             (0.0, 0.0, WGRAD_STEP_MOMENT_L2, WGRAD_STEP_MOMENT_TENSOR,
+              WGRAD_STEP_PARAMS_OFF))):
+        diff = step_diff(a, b)
+        loss, stats, moments, off, live = diff
+        if (loss > loss_tol or stats > stats_tol or off > off_tol * live
+                or any(l2 > l2_tol or worst > worst_tol
+                       for l2, worst in moments.values())):
+            bad.append(what)
+        log("train-f32", f"{what} (one FPD step, float32, TF32 off, batch "
+            f"2): {describe(*diff)}")
+    if bad:
+        raise AssertionError(f"train-f32: beyond the bars: {bad}")
+
+
+def mpii_eval_batches(cfg, gt, device):
+    """Crops of the synthetic MPII people: (batches, centers, scales).
+    Each crop is noise; its targets are the ground-truth joints mapped
+    into it by the crop's affine; the last batch is padded (valid 0)."""
+    import torch
+    from fhpe_tpu_torch.geometry.affine import (affine_transform,
+                                                get_affine_transform)
+    from fhpe_tpu_torch.ops.decode import make_inverse_transforms
+    xy = np.transpose(gt["pos_gt_src"], (2, 0, 1)) - 1.0      # (N, J, 2)
+    vis = 1.0 - gt["jnt_missing"].T
+    n, j, _ = xy.shape
+    centers = (xy.min(1) + xy.max(1)) / 2
+    scales = np.repeat((xy.max(1) - xy.min(1)).max(1, keepdims=True)
+                       * 1.25 / 200.0, 2, axis=1)
+    image_size = [int(v) for v in cfg.MODEL.IMAGE_SIZE]
+    joints = np.zeros((n, j, 2), np.float32)
+    for i in range(n):
+        t = get_affine_transform(centers[i], scales[i], 0, image_size)
+        joints[i] = [affine_transform(p, t) for p in xy[i]]
+    inv = make_inverse_transforms(centers, scales,
+                                  [int(v) for v in cfg.MODEL.HEATMAP_SIZE])
+    rng = np.random.RandomState(3)
+    b = int(cfg.TEST.BATCH_SIZE_PER_GPU)
+    batches = []
+    for lo in range(0, n, b):
+        idx = np.arange(lo, lo + b) % n
+        batch = {"image": rng.randint(0, 256, (b, image_size[1],
+                                               image_size[0], 3)
+                                      ).astype(np.uint8),
+                 "joints": joints[idx], "joints_vis":
+                 vis[idx].astype(np.float32), "inv_trans": inv[idx],
+                 "valid": (np.arange(lo, lo + b) < n).astype(np.float32)}
+        batches.append({k: torch.from_numpy(v).to(device)
+                        for k, v in batch.items()})
+    return batches
+
+
+def phase_eval_mpii(model, device, out_dir, totals) -> None:
+    """Validation of the trained student: make_eval_step on synthetic MPII
+    crops, then PCKh through make_evaluate_fn."""
+    import torch
+    from fhpe_tpu_torch.cli.common import make_evaluate_fn
+    from fhpe_tpu_torch.data import MPII_FLIP_PAIRS
+    from fhpe_tpu_torch.data.mpii_synthetic import (preds_at_gt,
+                                                    synthetic_mpii_gt,
+                                                    write_mpii_gt)
+    from fhpe_tpu_torch.geometry.flip import flip_pair_permutation
+    from fhpe_tpu_torch.tools.train_parity import fpd_cfgs
+    from fhpe_tpu_torch.train import make_batch_preprocessor, make_eval_step
+
+    cfg, _ = fpd_cfgs()
+    cfg.defrost()
+    cfg.DATASET.ROOT = str(out_dir)
+    cfg.freeze()
+    gt = synthetic_mpii_gt(MPII_PEOPLE, seed=5)
+    write_mpii_gt(str(out_dir), cfg.DATASET.TEST_SET, gt)
+    batches = mpii_eval_batches(cfg, gt, device)
+    step = make_eval_step(cfg, flip_pair_permutation(
+        int(cfg.MODEL.NUM_JOINTS), MPII_FLIP_PAIRS),
+        prepare=make_batch_preprocessor(cfg))
+    step(model, batches[0])     # warm
+
+    outs, counts = main_path_run(totals, lambda: [step(model, b)
+                                                  for b in batches])
+    want = {"decode_heatmaps": on_card(device,
+                                       K1_PER_EVAL_BATCH * len(batches)),
+            "conv3x3_wgrad": 0, "pairwise_oks": 0, "greedy_nms_mask": 0}
+    if counts != want:
+        raise AssertionError(f"eval: launches {counts}, want {want}")
+    preds = torch.cat([torch.cat([o["preds"], o["maxvals"][..., None]], -1)
+                       for o in outs])[:MPII_PEOPLE].cpu().numpy()
+    hits = sum(o["hits"] for o in outs).cpu().numpy()
+    valids = sum(o["valids"] for o in outs).cpu().numpy()
+    losses = [o["loss"].item() for o in outs]
+    if preds.shape != (MPII_PEOPLE, 16, 3) or not np.isfinite(preds).all() \
+            or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"eval: preds {preds.shape}, losses {losses}")
+
+    evaluate = make_evaluate_fn(cfg, device=device)
+    planted, _ = evaluate(cfg, preds_at_gt(gt), str(out_dir), None, None)
+    nv, perf = evaluate(cfg, preds, str(out_dir), None, None)
+    if planted["Mean"] != 100.0 or not all(math.isfinite(float(v))
+                                           for v in nv.values()):
+        raise AssertionError(f"eval: PCKh planted {dict(planted)}, "
+                             f"step's {dict(nv)}")
+    log("eval", f"{len(batches)} batches of {len(batches[0]['valid'])} "
+        f"({MPII_PEOPLE} people, flip test on): decode launches "
+        f"{counts['decode_heatmaps']} (3 per batch), P4 0; loss "
+        f"{np.mean(losses):.6f}, PCK hits/valids {int(hits.sum())}/"
+        f"{int(valids.sum())}; PCKh: planted at the ground truth Mean "
+        f"{planted['Mean']:.1f}, the step's preds "
+        + ", ".join(f"{k} {float(v):.2f}" for k, v in nv.items()))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -635,7 +1047,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
 
     stats = {"decode_heatmaps": phase_kernel_vs_plain(device),
-             **phase_nms_kernels(device)}
+             **phase_nms_kernels(device),
+             "conv3x3_wgrad": phase_wgrad_kernel(device)}
     totals = Counter()
 
     student = serve_cfg(STUDENT_YAML)
@@ -662,6 +1075,12 @@ def main() -> int:
         phase_coco_planted(w32, gt, device, root, totals)
         phase_coco_predictor(p, w32, gt, device, root, totals)
 
+    state, shapes = phase_fpd_train(device, totals, label)
+    phase_wgrad_step_shapes(device, shapes)
+    phase_f32_train_parity(device)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        phase_eval_mpii(state.model, device, Path(tmp), totals)
+
     for name in KERNELS:
         if totals[name] <= 0:
             raise AssertionError(f"the main path never launched {name}")
@@ -669,7 +1088,7 @@ def main() -> int:
         {"name": name, "route": "cuda", **KERNELS[name],
          "launches": totals[name], "max_abs_err": s["max_abs_err"],
          "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-         "bound_by": s["bound_by"], "library_ms": None}
+         "bound_by": s["bound_by"], "library_ms": s.get("library_ms")}
         for name, s in stats.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

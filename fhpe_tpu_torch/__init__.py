@@ -6,9 +6,11 @@ kernels for what ``fhpe_tpu`` wrote in Pallas.  It never imports JAX.
 
 Covered so far: serving the stacked hourglass and HRNet
 (``fhpe_tpu_torch.serve.Predictor``) with the heatmap-decode kernel
-(``fhpe_tpu_torch.ops.decode``), and COCO evaluation
+(``fhpe_tpu_torch.ops.decode``), COCO evaluation
 (``fhpe_tpu_torch.cli.common.make_evaluate_fn``) with OKS-NMS on the card
-(``fhpe_tpu_torch.ops.nms_torch``: the pairwise OKS and greedy kernels).
+(``fhpe_tpu_torch.ops.nms_torch``: the pairwise OKS and greedy kernels),
+and FPD training on one device (``fhpe_tpu_torch.train``) with the 3x3
+filter-gradient kernel (``fhpe_tpu_torch.ops.conv_wgrad``) and MPII PCKh.
 """
 
 __version__ = "0.1.0"

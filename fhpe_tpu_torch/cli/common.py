@@ -1,9 +1,10 @@
 """Dataset-metric dispatch for evaluation.
 
 Counterpart of ``make_evaluate_fn`` in ``fhpe_tpu/cli/common.py``: the
-COCO branch (rescore + OKS-NMS on the card -> results JSON -> COCO AP)
-and the ``synthetic`` branch.  The MPII branch (PCKh) and ``validate``
-come with the port's CLI slice (``ROADMAP.md`` queue A, item 7).
+COCO branch (rescore + OKS-NMS on the card -> results JSON -> COCO AP),
+the MPII branch (PCKh against ``gt_<TEST_SET>.mat``, host) and the
+``synthetic`` branch.  ``validate`` comes with the port's CLI slice
+(``ROADMAP.md`` queue A, item 7).
 """
 
 from __future__ import annotations
@@ -26,9 +27,11 @@ def make_evaluate_fn(cfg, device="cuda"):
     if name == "synthetic":
         return None
     if name == "mpii":
-        raise NotImplementedError(
-            "MPII PCKh evaluation is not ported yet (ROADMAP.md queue A, "
-            "item 7: the CLI slice)")
+        from ..data import mpii
+
+        def fn(cfg, preds, output_dir, all_boxes, img_paths):
+            return mpii.evaluate(cfg, preds, output_dir or None)
+        return fn
     if name == "coco":
         from ..data.coco import (NUM_JOINTS, CocoIndex, rescore_and_nms,
                                  write_results_json)

@@ -1,14 +1,15 @@
 """Dataset constants the serving path needs: joint counts and flip pairs.
 
-A copy of those entries of ``fhpe_tpu.data.dataset_meta`` and the
-MPII/COCO constants (``fhpe_tpu/data/mpii.py``, ``fhpe_tpu/data/coco.py``):
-importing ``fhpe_tpu.data`` pulls in its loader, which imports JAX.
+A copy of those entries of ``fhpe_tpu.data.dataset_meta`` and the COCO
+constants (``fhpe_tpu/data/coco.py``); the MPII ones come from this
+package's copy of ``fhpe_tpu/data/mpii.py``.  Importing ``fhpe_tpu.data``
+pulls in its loader, which imports JAX.
 """
 
 from __future__ import annotations
 
-MPII_NUM_JOINTS = 16
-MPII_FLIP_PAIRS = [[0, 5], [1, 4], [2, 3], [10, 15], [11, 14], [12, 13]]
+from .mpii import FLIP_PAIRS as MPII_FLIP_PAIRS
+from .mpii import NUM_JOINTS as MPII_NUM_JOINTS
 
 COCO_NUM_JOINTS = 17
 COCO_FLIP_PAIRS = [[1, 2], [3, 4], [5, 6], [7, 8], [9, 10], [11, 12],

@@ -17,15 +17,74 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.conv_wgrad import conv3x3_wgrad
 from ..utils.dtype import autocast
 
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
 
 
+class _Conv3x3WgradFn(torch.autograd.Function):
+    """3x3 stride-1 pad-1 conv whose filter gradient is the P4 port
+    (``ops/conv_wgrad.py``): forward and input gradient by cuDNN, bias
+    gradient a sum.  Takes the tensors in the dtype the conv computes in
+    and returns each gradient in its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight)
+        ctx.has_bias = bias is not None
+        with torch.autocast(x.device.type, enabled=False):
+            return F.conv2d(x, weight, bias, 1, 1)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = db = None
+        with torch.autocast(x.device.type, enabled=False):
+            if ctx.needs_input_grad[0]:
+                dx = torch.ops.aten.convolution_backward(
+                    dy, x, weight, None, [1, 1], [1, 1], [1, 1], False,
+                    [0, 0], 1, [True, False, False])[0]
+            if ctx.needs_input_grad[1]:
+                dw = conv3x3_wgrad(x.contiguous(), dy).to(weight.dtype)
+            if ctx.has_bias and ctx.needs_input_grad[2]:
+                db = dy.sum((0, 2, 3))
+        return dx, dw, db
+
+
+class Conv3x3(nn.Conv2d):
+    """``nn.Conv2d(c, c, 3, padding=1)`` whose training backward takes the
+    filter gradient from the P4 port (``ops/conv_wgrad.py``).
+
+    Under ``no_grad`` / ``inference_mode`` it is the plain conv.  With
+    grad on, it hands the Function the copies of x, weight and bias that
+    autocast would hand ``F.conv2d`` (bf16 under bf16 autocast), as
+    ``fhpe_tpu``'s flax ``Conv`` casts its float32 kernel inside the
+    forward: the weight gradient is then rounded to the copy's dtype and
+    the cast's backward lifts it to float32, as both frameworks do.
+    Same parameters and ``state_dict`` keys as ``nn.Conv2d``.
+    """
+
+    def forward(self, x):
+        if not torch.is_grad_enabled():
+            return super().forward(x)
+        w, b = self.weight, self.bias
+        dev = x.device.type
+        if torch.is_autocast_enabled(dev):
+            dt = torch.get_autocast_dtype(dev)
+            x, w = x.to(dt), w.to(dt)
+            b = None if b is None else b.to(dt)
+        return _Conv3x3WgradFn.apply(x, w, b)
+
+
 def conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1,
          bias: bool = True) -> nn.Conv2d:
-    """2D conv with torch-style symmetric padding ``(kernel - 1) // 2``."""
+    """2D conv with torch-style symmetric padding ``(kernel - 1) // 2``;
+    a 3x3 stride-1 conv with ``in_ch == out_ch`` is a :class:`Conv3x3`."""
+    if kernel == 3 and stride == 1 and in_ch == out_ch:
+        return Conv3x3(in_ch, out_ch, 3, padding=1, bias=bias)
     return nn.Conv2d(in_ch, out_ch, kernel, stride=stride,
                      padding=(kernel - 1) // 2, bias=bias)
 

@@ -104,6 +104,9 @@ def load_library() -> ctypes.CDLL:
     lib.fhpe_greedy_nms_mask.argtypes = [vp, vp, vp, vp, ci, ctypes.c_float,
                                          vp]
     lib.fhpe_greedy_nms_mask.restype = ci
+    lib.fhpe_conv3x3_wgrad.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                                       ci, ci, vp]
+    lib.fhpe_conv3x3_wgrad.restype = ci
     lib.fhpe_cuda_error_string.argtypes = [ci]
     lib.fhpe_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -47,6 +47,9 @@ TURNS = 3       # (A, B, B, A) rounds of the served-rate comparison
 # kernel-name substrings -> group, first match wins
 KERNEL_GROUPS = (
     ("decode_kernel", "decode kernel"),
+    ("wgrad_", "conv wgrad kernel (P4)"),
+    ("multi_tensor_apply", "optimizer"),
+    ("reduce_kernel", "reductions"),
     ("batch_norm", "batchnorm"),
     ("nchwToNhwc", "nchw<->nhwc transposes"),
     ("nhwcToNchw", "nchw<->nhwc transposes"),

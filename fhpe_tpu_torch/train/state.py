@@ -1,0 +1,98 @@
+"""Train state, optimizer, and learning-rate schedule.
+
+Counterpart of ``fhpe_tpu/train/state.py`` (optax) with ``torch.optim``:
+
+* adam: betas 0.9/0.999, eps 1e-8, no weight decay (reference
+  ``lib/utils/utils.py:59-75``);
+* sgd: momentum, nesterov, L2 weight decay added to the gradient before
+  the momentum update, dampening 0: optax's ``add_decayed_weights`` +
+  ``sgd``, which is torch's SGD.
+
+The learning rate is set per epoch from :func:`lr_for_epoch` with
+:func:`set_lr`, not by a stock scheduler.
+"""
+
+from __future__ import annotations
+
+import bisect
+from dataclasses import dataclass
+from typing import Optional, Union
+
+import torch
+from torch import nn
+
+from ..models import get_pose_net
+from ..utils.dtype import compute_dtype
+
+
+@dataclass
+class TrainState:
+    """The student being trained, its optimizer, and the optimizer steps
+    taken."""
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+
+def lr_for_epoch(cfg, epoch: int) -> float:
+    """LR * LR_FACTOR ** (#LR_STEP milestones <= epoch + 1).
+
+    The ``+ 1`` is the reference's effective (historically accidental)
+    schedule: MultiStepLR's constructor performs an initial ``step()`` and
+    ``tools/train.py:209-210`` steps again at the top of EVERY epoch
+    including the first, so by the time epoch ``e`` trains the scheduler's
+    ``last_epoch`` is ``e + 1`` — a milestone at epoch ``m`` takes effect
+    from trained epoch ``m - 1``.  Verified empirically against torch
+    (both the 2.x recursive and the closed-form semantics agree) and
+    pinned end-to-end by tests/test_trajectory_parity.py.
+    """
+    steps = sorted(cfg.TRAIN.LR_STEP)
+    return float(cfg.TRAIN.LR) * float(cfg.TRAIN.LR_FACTOR) ** bisect.bisect_right(
+        steps, epoch + 1)
+
+
+def make_optimizer(cfg, params) -> torch.optim.Optimizer:
+    """``TRAIN.OPTIMIZER`` over ``params`` at ``TRAIN.LR``."""
+    name = cfg.TRAIN.OPTIMIZER
+    lr = float(cfg.TRAIN.LR)
+    if name == "adam":
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=0.0)
+    if name == "sgd":
+        return torch.optim.SGD(params, lr=lr,
+                               momentum=float(cfg.TRAIN.MOMENTUM),
+                               dampening=0.0,
+                               weight_decay=float(cfg.TRAIN.WD),
+                               nesterov=bool(cfg.TRAIN.NESTEROV))
+    raise ValueError(f"unknown TRAIN.OPTIMIZER '{name}'")
+
+
+def set_lr(state: TrainState, lr: float) -> TrainState:
+    """Set every parameter group's learning rate (epoch boundary)."""
+    for group in state.optimizer.param_groups:
+        group["lr"] = float(lr)
+    return state
+
+
+def create_train_state(cfg, model: Optional[nn.Module] = None, seed: int = 0,
+                       device: Union[str, torch.device] = "cuda"
+                       ) -> TrainState:
+    """Put ``model`` (or a fresh ``get_pose_net(cfg)``, initialised from
+    ``seed``) on ``device`` in train mode, with a fresh optimizer.
+    Parameters are float32 (float64 in the CPU parity mode); bf16 compute
+    runs under autocast.  Training runs on one device."""
+    if int(cfg.TPU.NUM_DEVICES) > 1:
+        raise NotImplementedError(
+            "training over several devices is not ported yet (ROADMAP.md "
+            "queue A, item 11); set TPU.NUM_DEVICES to 1 or -1")
+    if model is None:
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            model = get_pose_net(cfg)
+    device = torch.device(device)
+    param_dtype = torch.float64 if compute_dtype(cfg, device) == \
+        torch.float64 else torch.float32
+    model = model.to(device=device, dtype=param_dtype)
+    model.train()
+    return TrainState(model=model,
+                      optimizer=make_optimizer(cfg, model.parameters()))

@@ -1,0 +1,283 @@
+"""Train, FPD and eval steps on one device.
+
+Counterpart of ``fhpe_tpu/train/step.py`` (the reference's hot loops,
+``lib/core/function.py:28-332``), eager PyTorch instead of jitted SPMD
+programs:
+
+* :func:`make_train_step`: forward, loss (MSE or OHKM), backward,
+  optimizer step, PCK counts on the device;
+* :func:`make_fpd_train_step`: adds the teacher forward (eval mode, no
+  gradient: ``fhpe_tpu``'s deliberate fix of the reference's undetached
+  teacher, function.py:120-122) and the ``(1-alpha)*pose + alpha*kd``
+  mixing (function.py:134);
+* :func:`make_eval_step`: forward with the flip test (input W-flip,
+  ``flip_back``, SHIFT_HEATMAP 1-px right shift, 0.5 average;
+  function.py:218-240), loss masked over padded rows, decode.
+
+Every argmax (the decode and both sides of the PCK counts) goes through
+the decode kernel K1 (``ops/decode.py``); every 3x3 stride-1 filter
+gradient of the student's backward through the P4 kernel
+(``ops/conv_wgrad.py``, via ``models/common.py::Conv3x3``).  Metrics stay
+device tensors until the caller reads them.  BatchNorm keeps its running
+statistics as torch does in train mode (``fhpe_tpu``'s ``_TorchBatchNorm``
+rebuilds those semantics).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..geometry.flip import flip_back_torch
+from ..geometry.targets import generate_target_torch
+from ..models import is_multi_output
+from ..ops.decode import decode_argmax, decode_heatmaps
+from ..ops.preprocess import normalize_images
+from ..utils.dtype import autocast, compute_dtype
+from .loss import fpd_loss, stacked_mse_loss, stacked_ohkm_loss
+from .state import TrainState
+
+
+def make_batch_preprocessor(cfg, joints_weight=None):
+    """On-device preprocessing (``TPU.DEVICE_PREPROCESS``).
+
+    The batch carries raw uint8 crops ``image`` (B, H, W, 3) with
+    ``joints`` (B, J, 2) and ``joints_vis`` (B, J) on the device; the
+    closure normalizes (/255, ImageNet mean/std) to NCHW float32 and
+    stamps the Gaussian targets (B, J, h, w) and ``target_weight`` (B, J).
+    A batch that already has ``target`` is returned as it is.
+    """
+    img_size = tuple(cfg.MODEL.IMAGE_SIZE)      # (W, H)
+    hm_size = tuple(cfg.MODEL.HEATMAP_SIZE)     # (W, H)
+    sigma = cfg.MODEL.SIGMA
+    use_diff = bool(cfg.LOSS.USE_DIFFERENT_JOINTS_WEIGHT)
+    jw = None
+    if use_diff and joints_weight is not None:
+        jw = np.asarray(joints_weight, dtype=np.float32).reshape(-1)
+
+    def prepare(batch):
+        if "canvas" in batch:
+            raise NotImplementedError(
+                "TPU.DEVICE_WARP (warping crops from the letterbox canvas on "
+                "the device) is not ported yet (ROADMAP.md queue A, item 6)")
+        if "target" in batch:
+            return batch
+        out = dict(batch)
+        out["image"] = normalize_images(batch["image"])
+        out["target"], out["target_weight"] = generate_target_torch(
+            batch["joints"], batch["joints_vis"], hm_size, img_size, sigma,
+            joints_weight=jw, use_different_joints_weight=use_diff)
+        return out
+
+    return prepare
+
+
+def _identity_prepare(batch):
+    if batch["image"].dtype != torch.uint8:
+        return batch
+    return dict(batch, image=normalize_images(batch["image"]))
+
+
+def _pck_counts(output, target, sample_mask=None):
+    """(hits, valids) per joint for the global-PCK meter (eval/pck.py
+    semantics as summable counts).  output/target (B, J, H, W) float32;
+    ``sample_mask`` (B,) excludes padded rows.  Both argmaxes run on the
+    decode kernel K1 (``decode_argmax`` without the quarter offset)."""
+    pred, _ = decode_argmax(output.contiguous(), post_process=False)
+    gt, _ = decode_argmax(target.contiguous(), post_process=False)
+    h, w = output.shape[2], output.shape[3]
+    norm = torch.tensor([h / 10.0, w / 10.0], dtype=torch.float32,
+                        device=output.device)
+    valid = (gt[..., 0] > 1) & (gt[..., 1] > 1)
+    if sample_mask is not None:
+        valid = valid & (sample_mask > 0)[:, None]
+    d = torch.linalg.vector_norm((pred - gt) / norm, dim=-1)
+    hit = (d < 0.5) & valid
+    return hit.sum(0, dtype=torch.int32), valid.sum(0, dtype=torch.int32)
+
+
+def _per_sample_loss(output, target, target_weight, use_ohkm, topk):
+    """Per-sample criterion value (B,), the reference loss per row."""
+    diff = output - target
+    if target_weight is not None:
+        diff = diff * target_weight[:, :, None, None]
+    if use_ohkm:
+        per_joint = 0.5 * torch.mean(torch.square(diff), dim=(-2, -1))
+        return torch.topk(per_joint, topk, dim=-1).values.sum(-1) / topk
+    return 0.5 * torch.mean(torch.square(diff), dim=(-3, -2, -1))
+
+
+def _finalize_pck(hits, valids):
+    """Macro PCK (reference accuracy(): per-joint acc averaged over joints
+    with valid samples; cnt = number of counted joints, evaluate.py:62-68)."""
+    per_joint = torch.where(valids > 0, hits / valids.clamp(min=1), -1.0)
+    has = per_joint >= 0
+    cnt = has.sum()
+    total = torch.where(has, per_joint, 0.0).sum()
+    avg = torch.where(cnt > 0, total / cnt.clamp(min=1), 0.0)
+    return per_joint, avg, cnt
+
+
+def _input(model, image):
+    """The image in the model's parameter dtype (float64 only in the CPU
+    parity mode; bf16 runs under autocast on float32 parameters)."""
+    return image.to(next(model.parameters()).dtype)
+
+
+def _stacked(outputs, multi_output: bool):
+    """(stacked outputs for the loss, last output)."""
+    if multi_output:
+        return torch.stack(list(outputs)), outputs[-1]
+    return outputs, outputs
+
+
+def _metrics(loss, final, target):
+    with torch.no_grad():
+        hits, valids = _pck_counts(final.detach(), target)
+        per_joint, avg, cnt = _finalize_pck(hits, valids)
+    return {"loss": loss.detach(), "acc": avg, "acc_cnt": cnt,
+            "per_joint_acc": per_joint}
+
+
+def _update(state: TrainState, loss) -> None:
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    state.optimizer.step()
+    state.step += 1
+
+
+def make_train_step(cfg, prepare=None) -> Callable:
+    """``(state, batch) -> (state, metrics)``: one supervised step.
+
+    batch: {"image" (B, 3, H, W) float or (B, H, W, 3) uint8, "target"
+    (B, J, h, w), "target_weight" (B, J)} on the state's device, or the
+    raw batch a ``prepare`` closure (:func:`make_batch_preprocessor`)
+    takes.  The student runs ``train()`` under ``TPU.COMPUTE_DTYPE``.
+    """
+    use_tw = bool(cfg.LOSS.USE_TARGET_WEIGHT)
+    use_ohkm = bool(cfg.LOSS.USE_OHKM)
+    topk = int(cfg.LOSS.TOPK)
+    prepare = prepare or _identity_prepare
+
+    def step(state: TrainState, batch):
+        batch = prepare(batch)
+        model = state.model.train()
+        image = _input(model, batch["image"])
+        with autocast(compute_dtype(cfg, image.device), image.device):
+            outputs = model(image)
+        stacked, final = _stacked(outputs, is_multi_output(model))
+        tw = batch["target_weight"] if use_tw else None
+        if use_ohkm:
+            loss = stacked_ohkm_loss(stacked, batch["target"], tw, topk)
+        else:
+            loss = stacked_mse_loss(stacked, batch["target"], tw)
+        _update(state, loss)
+        return state, _metrics(loss, final, batch["target"])
+
+    return step
+
+
+def make_fpd_train_step(cfg, teacher, teacher_cfg=None,
+                        prepare=None) -> Callable:
+    """``(state, batch) -> (state, metrics)``: one FPD distillation step.
+
+    ``teacher`` (an ``nn.Module`` on the state's device, frozen) runs in
+    eval mode without gradient under the teacher config's compute dtype;
+    its last heatmap is the KD target.  The KD term's target-weight flag
+    comes from ``teacher_cfg`` (the reference builds kd_pose_criterion
+    from the teacher config, fpd_train.py:145-147); it defaults to
+    ``cfg``.  Metrics: loss, pose_loss, kd_loss, acc, acc_cnt,
+    per_joint_acc.
+    """
+    tcfg = teacher_cfg or cfg
+    use_tw = bool(cfg.LOSS.USE_TARGET_WEIGHT)
+    use_tw_kd = bool(tcfg.LOSS.USE_TARGET_WEIGHT)
+    alpha = float(cfg.KD.ALPHA)
+    prepare = prepare or _identity_prepare
+    teacher_multi = is_multi_output(teacher)
+
+    def step(state: TrainState, batch):
+        batch = prepare(batch)
+        model = state.model.train()
+        image = _input(model, batch["image"])
+        teacher.eval()
+        with torch.no_grad(), autocast(compute_dtype(tcfg, image.device),
+                                       image.device):
+            t_out = teacher(_input(teacher, batch["image"]))
+        teacher_final = t_out[-1] if teacher_multi else t_out
+
+        with autocast(compute_dtype(cfg, image.device), image.device):
+            outputs = model(image)
+        stacked, final = _stacked(outputs, is_multi_output(model))
+        loss, pose, kd = fpd_loss(
+            stacked, teacher_final, batch["target"], batch["target_weight"],
+            alpha, use_target_weight_pose=use_tw,
+            use_target_weight_kd=use_tw_kd)
+        _update(state, loss)
+        metrics = _metrics(loss, final, batch["target"])
+        metrics.update(pose_loss=pose.detach(), kd_loss=kd.detach())
+        return state, metrics
+
+    return step
+
+
+def make_eval_step(cfg, flip_perm=None, prepare=None) -> Callable:
+    """``(model, batch) -> outputs`` under ``inference_mode``.
+
+    batch: {"image", "target", "target_weight", "inv_trans" (B, 2, 3),
+    optionally "valid" (B,) with 0 on padded rows}.  outputs: {"preds"
+    (B, J, 2) in source-image coordinates, "maxvals" (B, J), "loss" (),
+    "hits"/"valids" (J,)}, device tensors.  Three decode-kernel launches
+    per batch: the decode and the two PCK argmaxes.
+    """
+    use_tw = bool(cfg.LOSS.USE_TARGET_WEIGHT)
+    use_ohkm = bool(cfg.LOSS.USE_OHKM)
+    topk = int(cfg.LOSS.TOPK)
+    flip_test = bool(cfg.TEST.FLIP_TEST)
+    shift_heatmap = bool(cfg.TEST.SHIFT_HEATMAP)
+    post_process = bool(cfg.TEST.POST_PROCESS)
+    if flip_test and flip_perm is None:
+        raise ValueError("flip_perm is required when TEST.FLIP_TEST")
+    prepare = prepare or _identity_prepare
+
+    @torch.inference_mode()
+    def step(model, batch):
+        batch = prepare(batch)
+        image = _input(model, batch["image"])
+        multi = is_multi_output(model)
+        model.eval()
+
+        def fwd(x):
+            with autocast(compute_dtype(cfg, x.device), x.device):
+                out = model(x)
+            return out[-1] if multi else out
+
+        output = fwd(image)
+        if flip_test:
+            perm = torch.as_tensor(np.asarray(flip_perm), device=image.device)
+            flipped = flip_back_torch(fwd(image.flip(3)), perm)
+            if shift_heatmap:
+                # reference: col 0 kept, cols 1: get cols 0:-1
+                # (function.py:236-238)
+                flipped = torch.cat([flipped[..., :1], flipped[..., :-1]],
+                                    dim=3)
+            output = (output + flipped) * 0.5
+
+        tw = batch["target_weight"] if use_tw else None
+        mask = batch.get("valid")
+        if mask is None:
+            mask = torch.ones(output.shape[0], device=output.device)
+        mask = mask.to(torch.float32)
+        per_sample = _per_sample_loss(output, batch["target"], tw, use_ohkm,
+                                      topk)
+        loss = (per_sample * mask).sum() / mask.sum().clamp(min=1.0)
+
+        preds, maxvals = decode_heatmaps(output.contiguous(),
+                                         batch["inv_trans"], post_process)
+        hits, valids = _pck_counts(output, batch["target"], mask)
+        return {"preds": preds, "maxvals": maxvals, "loss": loss,
+                "hits": hits, "valids": valids}
+
+    return step

@@ -2,8 +2,9 @@
 
 :func:`state_dict_from_jax` is the inverse of
 ``fhpe_tpu.utils.torch_import.import_hourglass``: it walks the same name
-mapping the other way, so one weight set drives both forwards.  It takes
-the flax tree as numpy and needs no JAX.
+mapping the other way, so one weight set drives both forwards.
+:func:`adam_state_from_jax` carries optax Adam's moments over by the same
+mapping.  Both take the flax trees as numpy and need no JAX.
 """
 
 from __future__ import annotations
@@ -131,6 +132,41 @@ def _get(tree: dict, path: Tuple[str, ...]):
     return tree
 
 
+def _layers(cfg) -> Iterator[Tuple[str, str, tuple]]:
+    extra = cfg.MODEL.EXTRA
+    if cfg.MODEL.NAME == "hourglass":
+        return _hourglass_layers(extra.NUM_STACKS, extra.NUM_BLOCKS)
+    if cfg.MODEL.NAME == "pose_hrnet":
+        return _hrnet_layers(extra)
+    raise NotImplementedError(
+        f"state_dict_from_jax: MODEL.NAME '{cfg.MODEL.NAME}' is not "
+        f"ported yet (ROADMAP.md queue A, item 9)")
+
+
+def _t(a) -> torch.Tensor:
+    """float32, or float64 for float64 leaves (parity runs)."""
+    a = np.asarray(a)
+    return torch.tensor(a if a.dtype == np.float64 else a.astype(np.float32))
+
+
+def _param_tensors(cfg, params: dict) -> Dict[str, torch.Tensor]:
+    """A tree shaped like flax ``params`` (the parameters, or an optimizer
+    moment of them) -> torch parameter name -> tensor."""
+    out: Dict[str, torch.Tensor] = {}
+    for kind, tkey, path in _layers(cfg):
+        if kind == "conv":
+            leaf = _get(params, path + ("Conv_0",))
+            out[f"{tkey}.weight"] = _t(np.transpose(leaf["kernel"],
+                                                    (3, 2, 0, 1)))
+            if "bias" in leaf:
+                out[f"{tkey}.bias"] = _t(leaf["bias"])
+        else:
+            leaf = _get(params, path + ("BatchNorm_0",))
+            out[f"{tkey}.weight"] = _t(leaf["scale"])
+            out[f"{tkey}.bias"] = _t(leaf["bias"])
+    return out
+
+
 def state_dict_from_jax(cfg, variables: dict) -> Dict[str, torch.Tensor]:
     """flax ``{"params", "batch_stats"}`` tree (numpy leaves) -> state_dict.
 
@@ -138,34 +174,29 @@ def state_dict_from_jax(cfg, variables: dict) -> Dict[str, torch.Tensor]:
     ``weight/bias/running_mean/running_var``; ``num_batches_tracked`` = 0.
     A conv without a bias in the tree (``TPU.DEAD_BIAS_SKIP``) gets none.
     """
-    extra = cfg.MODEL.EXTRA
-    if cfg.MODEL.NAME == "hourglass":
-        layers = _hourglass_layers(extra.NUM_STACKS, extra.NUM_BLOCKS)
-    elif cfg.MODEL.NAME == "pose_hrnet":
-        layers = _hrnet_layers(extra)
-    else:
-        raise NotImplementedError(
-            f"state_dict_from_jax: MODEL.NAME '{cfg.MODEL.NAME}' is not "
-            f"ported yet (ROADMAP.md queue A, item 9)")
-    params, stats = variables["params"], variables["batch_stats"]
-
-    def t(a):
-        return torch.tensor(np.asarray(a, dtype=np.float32))
-
-    sd: Dict[str, torch.Tensor] = {}
-    for kind, tkey, path in layers:
-        if kind == "conv":
-            leaf = _get(params, path + ("Conv_0",))
-            sd[f"{tkey}.weight"] = t(np.transpose(leaf["kernel"],
-                                                  (3, 2, 0, 1)))
-            if "bias" in leaf:
-                sd[f"{tkey}.bias"] = t(leaf["bias"])
-        else:
-            p = _get(params, path + ("BatchNorm_0",))
+    sd = _param_tensors(cfg, variables["params"])
+    stats = variables["batch_stats"]
+    for kind, tkey, path in _layers(cfg):
+        if kind == "bn":
             s = _get(stats, path + ("BatchNorm_0",))
-            sd[f"{tkey}.weight"] = t(p["scale"])
-            sd[f"{tkey}.bias"] = t(p["bias"])
-            sd[f"{tkey}.running_mean"] = t(s["mean"])
-            sd[f"{tkey}.running_var"] = t(s["var"])
+            sd[f"{tkey}.running_mean"] = _t(s["mean"])
+            sd[f"{tkey}.running_var"] = _t(s["var"])
             sd[f"{tkey}.num_batches_tracked"] = torch.tensor(0)
     return sd
+
+
+def adam_state_from_jax(cfg, optimizer: torch.optim.Optimizer,
+                        model: torch.nn.Module, count: int, mu: dict,
+                        nu: dict) -> dict:
+    """optax Adam's state (``count`` and the ``mu``/``nu`` trees, numpy
+    leaves) -> a ``state_dict`` for ``optimizer``, a ``torch.optim.Adam``
+    over ``model.parameters()``: ``exp_avg`` = mu, ``exp_avg_sq`` = nu,
+    ``step`` = count, by the parameter name mapping of
+    :func:`state_dict_from_jax`.  Load it with
+    ``optimizer.load_state_dict``."""
+    m, v = _param_tensors(cfg, mu), _param_tensors(cfg, nu)
+    state = {i: {"step": torch.tensor(float(count)), "exp_avg": m[name],
+                 "exp_avg_sq": v[name]}
+             for i, (name, _) in enumerate(model.named_parameters())}
+    return {"state": state,
+            "param_groups": optimizer.state_dict()["param_groups"]}

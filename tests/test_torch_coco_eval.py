@@ -108,8 +108,10 @@ def test_make_evaluate_fn_matches_jax(synth, tmp_path):
     assert len(json.loads(res.read_text())) < len(preds)
     cfg.DATASET.DATASET = "synthetic"
     assert make_evaluate_fn(cfg) is None
-    cfg.DATASET.DATASET = "mpii"
-    with pytest.raises(NotImplementedError):
+    cfg.DATASET.DATASET = "mpii"     # PCKh: tests/test_torch_mpii_eval.py
+    assert callable(make_evaluate_fn(cfg))
+    cfg.DATASET.DATASET = "lsp"
+    with pytest.raises(KeyError):
         make_evaluate_fn(cfg)
 
 

@@ -1,6 +1,6 @@
 """The port stands without JAX, and its copies of fhpe_tpu's host code
 (config, affine geometry, dataset constants, host NMS, COCO glue and
-evaluator) stay equal to the originals."""
+evaluator, MPII PCKh, the LR schedule) stay equal to the originals."""
 
 import glob
 import inspect
@@ -14,14 +14,17 @@ import pytest
 from fhpe_tpu import config as config_jax
 from fhpe_tpu.data import coco as coco_jax
 from fhpe_tpu.data import dataset_meta as dataset_meta_jax
+from fhpe_tpu.data import mpii as mpii_jax
 from fhpe_tpu.eval import coco_eval as coco_eval_jax
 from fhpe_tpu.geometry import affine as affine_jax
 from fhpe_tpu.ops import nms as nms_jax
+from fhpe_tpu.train import state as state_jax
 from fhpe_tpu_torch import config
-from fhpe_tpu_torch.data import coco, dataset_meta
+from fhpe_tpu_torch.data import coco, dataset_meta, mpii
 from fhpe_tpu_torch.eval import coco_eval
 from fhpe_tpu_torch.geometry import affine
 from fhpe_tpu_torch.ops import nms
+from fhpe_tpu_torch.train import state
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXPERIMENTS = sorted(os.path.relpath(p, REPO) for p in glob.glob(
@@ -53,8 +56,9 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    # every module of the port, the new ones of the COCO slice among them
-    assert int(proc.stdout.split()[-1]) >= 30, proc.stdout
+    # every module of the port, the new ones of the training slice among
+    # them
+    assert int(proc.stdout.split()[-1]) >= 39, proc.stdout
 
 
 @pytest.mark.parametrize("path", EXPERIMENTS)
@@ -159,3 +163,16 @@ def test_coco_eval_copy_equal(name):
                   "STATS_NAMES"):
         np.testing.assert_array_equal(getattr(coco_eval, const),
                                       getattr(coco_eval_jax, const))
+
+
+def test_mpii_eval_copy_equal():
+    """``data/mpii.py`` is a copy of ``evaluate`` and its constants."""
+    _same_source(mpii.evaluate, mpii_jax.evaluate)
+    for const in ("NUM_JOINTS", "FLIP_PAIRS", "JOINT_NAMES",
+                  "PCKH_HEADSIZE_BIAS", "PCKH_THRESHOLD", "PCKH_EXCLUDED",
+                  "PCKH_AT_01_BIN", "PCKH_SUMMARY_GROUPS"):
+        assert getattr(mpii, const) == getattr(mpii_jax, const), const
+
+
+def test_lr_schedule_copy_equal():
+    _same_source(state.lr_for_epoch, state_jax.lr_for_epoch)
