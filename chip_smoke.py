@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``fhpe_tpu_torch``) on one GPU.
 
-Drives the port's three paths end to end, through the entry points a
+Drives the port's four paths end to end, through the entry points a
 user calls, with random weights from a seed:
 
 * serving the FPD hourglass (MPII 256x256, 16 joints): the student
@@ -15,7 +15,13 @@ user calls, with random weights from a seed:
   Adam): ``train.create_train_state`` -> ``make_batch_preprocessor`` ->
   ``make_fpd_train_step`` (the 3x3 filter gradients through the P4
   kernel, the PCK argmaxes through the decode kernel), then validation:
-  ``make_eval_step`` -> ``make_evaluate_fn`` (MPII PCKh).
+  ``make_eval_step`` -> ``make_evaluate_fn`` (MPII PCKh);
+* FPD training of HRNet-W32 (``w32_fpd_student.yaml``) by W48
+  (``w48_256x192_teacher.yaml``, eval mode) on COCO-shaped batches (bf16,
+  batch 32, Adam lr 1e-3), the same entry points: every branch chain
+  through P5 (the teacher's and the eval step's in eval mode, the
+  student's in train mode, its backward through P4), then validation:
+  ``make_eval_step`` -> ``make_evaluate_fn`` (COCO AP).
 
 Phases; any failure raises and exits non-zero:
 
@@ -64,7 +70,31 @@ Phases; any failure raises and exits non-zero:
     a padded last batch; 3 decode launches per batch, no P4) on crops of
     a synthetic MPII set, then PCKh through ``make_evaluate_fn``:
     predictions planted at the ground truth give Mean 100, the step's
-    own give finite stats.
+    own give finite stats;
+15. P5 (the HRNet BasicBlock chain, eval and train entries) against its
+    plain versions on every W32 and W48 chain shape at batch 32 and on
+    edge cases (B = 1 and 3, C = 8 and 40, 1x1 and 3x130 images), bf16
+    and float32, TF32 off: y and the batch statistics within the bars of
+    ``CHAIN_*``, two runs bit-equal; then the device time of each entry,
+    its plain version and the same chain as unfused modules (cuDNN);
+16. ``BranchChainFn``'s gradients against autograd through the plain
+    chain, float32, at one W32 chain shape;
+17. the FPD W48 -> W32 train step at full width (bf16, batch 32): per
+    step 26 P5e, 26 P5t, 212 P4 and 2 decode launches, finite losses
+    falling over 10 steps on one batch, warm train images/s with P5 and
+    with every chain unrouted, a profile of each (idle share, device ops
+    per step, kernel ms by group) and one step's 52 chain forwards on P5
+    against the unfused modules;
+18. float32 FPD W48 -> W32 step parity (TF32 off, batch 2): card against
+    CPU at phase 13's bars, card with P5 against card with every chain
+    unrouted at the bars of ``HRNET_P5_STEP_BARS``;
+19. validation of the trained W32: ``make_eval_step`` (flip test, a padded
+    last batch) on crops of phase 10's synthetic COCO set, then COCO AP
+    through ``make_evaluate_fn``: 52 P5e and 3 decode launches per batch,
+    one OKS and one greedy launch per image, 10 finite stats.
+
+Phases 15 and 16 run right after 11; W32 serving (phases 8 and 10) also
+counts 52 P5e launches per chunk.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; comparisons of a kernel with its plain version run outside
@@ -148,6 +178,30 @@ WGRAD_STEP_MOMENT_L2 = 1e-4
 WGRAD_STEP_MOMENT_TENSOR = 1e-3
 WGRAD_STEP_PARAMS_OFF = 1e-4
 
+# FPD training of HRNet-W32 by W48 (COCO 256x192): each net runs 26 branch
+# chains (1 x 2 + 4 x 3 + 3 x 4 in stages 2-4), so 26 P5t launches per
+# student step and 26 P5e per teacher forward (52 per flip-test batch);
+# P4 gets the chains' 8 x 26 = 208 filter gradients and layer1's 4.
+HRNET_CHAINS = 26
+HRNET_P4_PER_STEP = 212
+HRNET_TRAIN_STEPS = 10     # on one repeated batch: the loss must fall
+# float32 FPD W48 -> W32 step parity (full width, batch 2, TF32 off), as
+# (loss rtol, BN stats, moments relative L2, worst moment tensor, share of
+# live parameters off by > 1% of lr).  Card against CPU at phase 13's bars:
+HRNET_PARITY_BARS = (TRAIN_PARITY_LOSS_RTOL, TRAIN_PARITY_STATS_RTOL,
+                     TRAIN_PARITY_MOMENT_L2, TRAIN_PARITY_MOMENT_TENSOR,
+                     TRAIN_PARITY_PARAMS_OFF)
+# ... and the card with P5 against the card with every chain unrouted (its
+# blocks as cuDNN convs and BatchNorm modules).  P5 changes the forward, by
+# ~1e-6 relative in float32 (phase a), which the step amplifies as it
+# amplifies card against CPU (a chain's train-mode BN over two samples):
+# measured on an H100 losses 2.3e-7, BN stats 8.2e-7, moments 8.0e-3 and
+# 9.3e-3 relative L2 (worst tensor 0.16), 2.3e-4 of the live parameters
+# off by > 1% of lr; card against CPU 1.1e-6, 3.5e-6, 1.8e-2 and 2.1e-2
+# (worst 0.17), 1.2e-3.  So not P4's tight bars; tighter than card against
+# CPU's where the chaos allows (BN stats and parameters 20x, moments 3x):
+HRNET_P5_STEP_BARS = (1e-5, 1e-4, 0.03, 0.5, 1e-3)
+
 # Card peaks for the bound (NVIDIA H100 SXM data sheet, dense).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -166,7 +220,36 @@ KERNELS = {
                         "replaces": "fhpe_tpu/ops/nms_jax.py:126"},
     "conv3x3_wgrad": {"source": "fhpe_tpu_torch/ops/csrc/conv_wgrad.cu",
                       "replaces": "scripts/probe/dw_pallas_probe.py:32"},
+    "branch_chain_eval": {
+        "source": "fhpe_tpu_torch/ops/csrc/branch_chain.cu",
+        "replaces": "scripts/probe/fused_block/fused_block_kernels.py:236"},
+    "branch_chain_train": {
+        "source": "fhpe_tpu_torch/ops/csrc/branch_chain.cu",
+        "replaces": "scripts/probe/fused_block/fused_block_kernels.py:128"},
 }
+# P5 (a whole BasicBlock chain) against its plain version on the card,
+# TF32 off.  In bf16 both round at four places per block and sum each conv
+# in another order, so where an exact value lies near a rounding boundary
+# the two round apart by one ulp, and that carries into the next convs:
+# y is held to CHAIN_Y_TOL of max|y| (one bf16 ulp is 2^-8 to 2^-7 of it)
+# and the mean |diff| to CHAIN_Y_MEAN_TOL of max|y|; the batch means to
+# CHAIN_STATS_TOL of sqrt(var + eps), the variances to CHAIN_STATS_TOL of
+# var + eps.  float32 differs only in the order of the sums.  Measured on
+# an H100 over the 13 chains: bf16 max 1.09e-2, mean 5.2e-4, stats
+# 1.5e-3; float32 max 1.9e-6, mean 1.5e-7, stats 7.8e-7.
+CHAIN_Y_TOL = {"bfloat16": 2.0 ** -5, "float32": 2e-5}
+CHAIN_Y_MEAN_TOL = {"bfloat16": 1e-3, "float32": 2e-6}
+CHAIN_STATS_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
+CHAIN_TIMED = (32, 32, 64, 48)   # W32's branch 0 at batch 32, 4 blocks
+# BranchChainFn's gradients against autograd through the plain version,
+# float32, TF32 off, at one W32 chain shape: relative L2 per tensor.  The
+# kernel's forward differs from the plain one by ~1e-6 relative, which
+# flips the ReLU mask of the few elements within that of 0; each flip
+# moves one gradient element by its own size, so the relative L2 is about
+# the square root of the share flipped (measured 2.1e-3 on an H100, worst
+# tensor a BN scale; the float64 CPU test holds the backward to 1e-12).
+CHAIN_GRAD_SHAPE = (32, 64, 32, 24)
+CHAIN_GRAD_REL_L2 = 1e-2
 
 
 def log(phase: str, msg: str) -> None:
@@ -206,11 +289,15 @@ def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S
 # -- launch counts of the main path -----------------------------------------
 
 def _counters():
-    from fhpe_tpu_torch.ops import conv_wgrad, decode, nms_torch
+    from fhpe_tpu_torch.ops import branch_chain, conv_wgrad, decode, nms_torch
     return {"decode_heatmaps": (decode, "decode_kernel_launches"),
             "pairwise_oks": (nms_torch, "pairwise_oks_launches"),
             "greedy_nms_mask": (nms_torch, "greedy_nms_launches"),
-            "conv3x3_wgrad": (conv_wgrad, "conv_wgrad_launches")}
+            "conv3x3_wgrad": (conv_wgrad, "conv_wgrad_launches"),
+            "branch_chain_eval": (branch_chain,
+                                  "branch_chain_eval_launches"),
+            "branch_chain_train": (branch_chain,
+                                   "branch_chain_train_launches")}
 
 
 def main_path_run(totals: Counter, fn):
@@ -450,6 +537,12 @@ def check_bf16_flow(phase, p, crops):
         f"(convs, BNs, blocks: bf16 in and out; heatmaps float32)")
 
 
+def chains_per_chunk(p) -> int:
+    """P5e calls per chunk: every fused chain once per forward, two
+    forwards with the flip test (52 for HRNet-W32, 0 for the hourglass)."""
+    return len(fused_chains(p.model)) * (2 if p.flip_test else 1)
+
+
 def phase_serve(phase, cfg, model, device, requests, seed, totals,
                 label=""):
     """Serve ``requests`` (crop counts) as one main-path run; returns the
@@ -468,15 +561,20 @@ def phase_serve(phase, cfg, model, device, requests, seed, totals,
     chunks = sum(-(-n // p.batch_size) for n in requests)
     outs, counts = main_path_run(
         totals, lambda: [p.predict_crops(*d) for d in data])
-    launches = counts["decode_heatmaps"]
     for n, (preds, maxvals) in zip(requests, outs):
         check_outputs(phase, preds, maxvals, n, num_joints)
-    if launches != on_card(device, chunks) or counts["conv3x3_wgrad"]:
-        raise AssertionError(f"{phase}: {launches} decode kernel launches "
-                             f"for {chunks} chunks, "
-                             f"{counts['conv3x3_wgrad']} P4 launches")
+    per_chunk = chains_per_chunk(p)
+    want = {"decode_heatmaps": on_card(device, chunks),
+            "branch_chain_eval": on_card(device, per_chunk * chunks),
+            "pairwise_oks": 0, "greedy_nms_mask": 0, "conv3x3_wgrad": 0,
+            "branch_chain_train": 0}
+    if counts != want:
+        raise AssertionError(f"{phase}: launches {counts} for {chunks} "
+                             f"chunks, want {want}")
     log(phase, f"requests {requests}: shapes and finite ok, "
-        f"decode_kernel_launches {launches} == chunks {chunks}")
+        f"decode_kernel_launches {counts['decode_heatmaps']} == chunks "
+        f"{chunks}" + (f", P5e launches {counts['branch_chain_eval']} "
+                       f"({per_chunk} per chunk)" if per_chunk else ""))
     check_kernel_path_on_chunk(phase, p, *max(data, key=lambda d: len(d[0])))
     check_bf16_flow(phase, p, data[0][0])
 
@@ -666,7 +764,8 @@ def phase_coco_predictor(p, cfg, gt, device, out_dir, totals) -> None:
     chunks, images = -(-len(boxes) // p.batch_size), len(set(paths))
     if counts["decode_heatmaps"] != on_card(device, chunks) or not \
             counts["pairwise_oks"] == counts["greedy_nms_mask"] == \
-            on_card(device, images):
+            on_card(device, images) or counts["branch_chain_eval"] != \
+            on_card(device, chains_per_chunk(p) * chunks):
         raise AssertionError(f"coco-w32: launches {counts} for {chunks} "
                              f"chunks and {images} images")
     if len(nv) != 10 or not all(math.isfinite(v) for v in nv.values()):
@@ -799,7 +898,8 @@ def phase_fpd_train(device, totals, label):
     want = {"conv3x3_wgrad": on_card(device, P4_PER_STEP * TRAIN_STEPS),
             "decode_heatmaps": on_card(device,
                                        K1_PER_TRAIN_STEP * TRAIN_STEPS),
-            "pairwise_oks": 0, "greedy_nms_mask": 0}
+            "pairwise_oks": 0, "greedy_nms_mask": 0,
+            "branch_chain_eval": 0, "branch_chain_train": 0}
     if counts != want or len(shapes) != P4_PER_STEP:
         raise AssertionError(f"train: launches {counts} for {TRAIN_STEPS} "
                              f"steps, want {want}; {len(shapes)} convs")
@@ -930,6 +1030,517 @@ def phase_f32_train_parity(device) -> None:
         raise AssertionError(f"train-f32: beyond the bars: {bad}")
 
 
+# -- HRNet training: P5 ---------------------------------------------------------
+
+def chain_tensors(shape, blocks, seed, device):
+    """A chain input and parameters from ``branch_chain_cases``, float32."""
+    import torch
+    from fhpe_tpu_torch.ops.branch_chain_cases import (chain_input,
+                                                       chain_params)
+    b, c, h, w = shape
+    p = chain_params(c, blocks, seed)
+    x = torch.from_numpy(chain_input(b, c, h, w, seed + 1)).to(device)
+    ws, gs, bs = (list(torch.from_numpy(p[k]).to(device).unbind(0))
+                  for k in ("weights", "gammas", "betas"))
+    return x, ws, gs, bs
+
+
+def unfused_chain(x, ws, gs, bs, means, variances):
+    """The same chain as PyTorch modules run one by one (cuDNN convs,
+    BatchNorm, ReLU, adds): the yardstick P5 is timed against."""
+    import torch
+    from fhpe_tpu_torch.models.common import BasicBlock
+    from fhpe_tpu_torch.models.pose_hrnet import BranchChain
+    c = x.shape[1]
+    chain = BranchChain(*[BasicBlock(c, c) for _ in range(len(ws) // 2)])
+    chain.fused = False
+    convs = [cv for b in chain for cv in (b.conv1, b.conv2)]
+    bns = [bn for b in chain for bn in (b.bn1, b.bn2)]
+    with torch.no_grad():
+        for i, (cv, bn) in enumerate(zip(convs, bns)):
+            cv.weight.copy_(ws[i])
+            bn.weight.copy_(gs[i])
+            bn.bias.copy_(bs[i])
+            bn.running_mean.copy_(means[i])
+            bn.running_var.copy_(variances[i])
+    return chain.to(x.device)
+
+
+def chain_bound(shape, blocks, train: bool) -> dict:
+    """Least time for one bf16 chain call: 2 nb convs of 18 C^2 operations
+    per pixel at the bf16 peak, or its bytes: x read, the weights read, y
+    written (train: every block output and every pre-BN conv output, which
+    the kernel returns for the backward)."""
+    b, c, h, w = shape
+    act = 2 * b * c * h * w
+    written = (3 * blocks if train else 1) * act
+    nbytes = act + written + 2 * blocks * (2 * 9 * c * c + 4 * 2 * c)
+    return bound(nbytes, 2 * blocks * 18 * c * c * b * h * w, BF16_OPS_PER_S)
+
+
+def phase_chain_kernels(device) -> dict:
+    """P5e and P5t against their plain versions on every W32/W48 chain
+    shape at batch 32 and on edge cases, bf16 and float32, TF32 off; two
+    runs bit-equal; then device times of each entry, its plain version and
+    the unfused module chain (cuDNN)."""
+    import torch
+    from fhpe_tpu_torch.ops import branch_chain as bc
+    from fhpe_tpu_torch.ops.branch_chain_cases import (BLOCKS, EDGE_CASES,
+                                                       W32_SHAPES, W48_SHAPES)
+    from fhpe_tpu_torch.tools.train_parity import tf32_off
+    from fhpe_tpu_torch.utils.dtype import autocast
+    from fhpe_tpu_torch.utils.profiling import device_ms
+
+    cases = [(*s, BLOCKS) for s in W32_SHAPES + W48_SHAPES] + EDGE_CASES
+    # per (entry, dtype): max|diff| / max|y|, mean|diff| / max|y|, stats,
+    # max|diff|
+    worst = {(e, dt): [0.0, 0.0, 0.0, 0.0] for e in ("eval", "train")
+             for dt in CHAIN_Y_TOL}
+    bad = []
+
+    def diff(got, ref):
+        scale = max(ref.abs().max().item(), 1e-30)
+        d = (got.float() - ref.float()).abs()
+        return d.max().item() / scale, d.mean().item() / scale, d.max().item()
+
+    with tf32_off():
+        for k, (b, c, h, w, nb) in enumerate(cases):
+            x, ws, gs, bs = chain_tensors((b, c, h, w), nb, 40 + k, device)
+            # running statistics that match the data: the batch statistics
+            # of the float32 chain on this input
+            ref32 = bc.branch_chain_train_plain(x, ws, gs, bs)
+            means, variances = ref32.mean.unbind(0), ref32.var.unbind(0)
+            for name, dt in (("bfloat16", torch.bfloat16),
+                             ("float32", torch.float32)):
+                xd, wd = x.to(dt), [t.to(dt) for t in ws]
+                e1, e2 = (bc.branch_chain_eval(xd, wd, gs, bs, means,
+                                               variances) for _ in range(2))
+                ep = bc.branch_chain_eval_plain(xd, wd, gs, bs, means,
+                                                variances)
+                t1, t2 = (bc.branch_chain_train(xd, wd, gs, bs)
+                          for _ in range(2))
+                tp = bc.branch_chain_train_plain(xd, wd, gs, bs)
+                sync(device)
+                ey = diff(e1, ep)
+                ty = diff(t1.y, tp.y)
+                sd = torch.sqrt(tp.var + bc.BN_EPS)
+                st = max(((t1.mean - tp.mean).abs() / sd).max().item(),
+                         ((t1.var - tp.var).abs() / sd.square()).max().item())
+                same = (torch.equal(e1, e2) and torch.equal(t1.y, t2.y)
+                        and torch.equal(t1.mean, t2.mean)
+                        and torch.equal(t1.var, t2.var))
+                for entry, (mx, mean, ab), stats in (("eval", ey, 0.0),
+                                                     ("train", ty, st)):
+                    acc = worst[(entry, name)]
+                    acc[:] = [max(acc[0], mx), max(acc[1], mean),
+                              max(acc[2], stats), max(acc[3], ab)]
+                    if not (same and mx <= CHAIN_Y_TOL[name]
+                            and mean <= CHAIN_Y_MEAN_TOL[name]
+                            and stats <= CHAIN_STATS_TOL[name]):
+                        bad.append((entry, name, (b, c, h, w, nb), mx, mean,
+                                    stats, same))
+    for (entry, name), (mx, mean, stats, _) in worst.items():
+        log("chain", f"P5 {entry} {name} against plain on {len(cases)} "
+            f"chains: max|diff| {mx:.3g} of max|y| (bar "
+            f"{CHAIN_Y_TOL[name]:.3g}), mean|diff| {mean:.3g} (bar "
+            f"{CHAIN_Y_MEAN_TOL[name]:.3g})"
+            + (f", batch stats {stats:.3g} (bar {CHAIN_STATS_TOL[name]:.3g})"
+               if entry == "train" else ""))
+    if bad:
+        raise AssertionError(f"P5 beyond its bars or not bit-equal run to "
+                             f"run: {bad[:6]}")
+    log("chain", "P5 eval and train: two runs bit-equal on every case")
+
+    out = {}
+    for entry in ("eval", "train"):
+        err = max(worst[(entry, n)][3] for n in CHAIN_Y_TOL)
+        out[f"branch_chain_{entry}"] = {
+            "max_abs_err": err, "ms": None, "plain_ms": None,
+            "library_ms": None,
+            **chain_bound(CHAIN_TIMED, BLOCKS, entry == "train")}
+    if device.type != "cuda":
+        return out
+    for k, shape in enumerate(W32_SHAPES + W48_SHAPES):
+        x, ws, gs, bs = chain_tensors(shape, BLOCKS, 60 + k, device)
+        ref = bc.branch_chain_train_plain(x, ws, gs, bs)
+        means, variances = ref.mean.unbind(0), ref.var.unbind(0)
+        xd, wd = x.to(torch.bfloat16), [t.to(torch.bfloat16) for t in ws]
+        lib = unfused_chain(x, ws, gs, bs, means, variances)
+        timed = {}
+        for entry in ("eval", "train"):
+            if entry == "eval":
+                def kernel():
+                    return bc.branch_chain_eval(xd, wd, gs, bs, means,
+                                                variances)
+
+                def plain():
+                    return bc.branch_chain_eval_plain(xd, wd, gs, bs, means,
+                                                      variances)
+            else:
+                def kernel():
+                    return bc.branch_chain_train(xd, wd, gs, bs)
+
+                def plain():
+                    return bc.branch_chain_train_plain(xd, wd, gs, bs)
+
+            def library(entry=entry):
+                lib.train(entry == "train")
+                with torch.no_grad(), autocast(torch.bfloat16, device):
+                    return lib(x)
+
+            dp1, dk1, dk2, dp2 = (device_ms(f, 10) for f in
+                                  (plain, kernel, kernel, plain))
+            dl = device_ms(library, 10)
+            timed[entry] = ((dk1 + dk2) / 2, (dp1 + dp2) / 2, dl)
+            if shape == CHAIN_TIMED:
+                out[f"branch_chain_{entry}"].update(
+                    ms=timed[entry][0], plain_ms=timed[entry][1],
+                    library_ms=dl)
+        b, c, h, w = shape
+        flop = 2 * BLOCKS * 18 * c * c * b * h * w
+        log("chain", f"P5 {shape} x {BLOCKS} blocks bf16, device time per "
+            f"call (profiler): " + "; ".join(
+                f"{entry} kernel {k:.4f} ms ({flop / k / 1e9:.1f} TFLOP/s), "
+                f"plain {p:.4f} ms, unfused modules {lb:.4f} ms, bound "
+                f"{chain_bound(shape, BLOCKS, entry == 'train')['bound_ms']:.4f}"
+                f" ms" for entry, (k, p, lb) in timed.items()))
+    return out
+
+
+def phase_chain_grad(device) -> None:
+    """BranchChainFn's gradients (BN backward, cuDNN input gradients, P4
+    filter gradients) against autograd through the plain version, float32,
+    TF32 off, at one W32 chain shape."""
+    import torch
+    from fhpe_tpu_torch.ops import branch_chain as bc
+    from fhpe_tpu_torch.ops.branch_chain_cases import BLOCKS
+    from fhpe_tpu_torch.tools.train_parity import tf32_off
+
+    x, ws, gs, bs = chain_tensors(CHAIN_GRAD_SHAPE, BLOCKS, 7, device)
+    params = [x, *ws, *gs, *bs]
+    for t in params:
+        t.requires_grad_(True)
+    gen = torch.Generator(device=device).manual_seed(3)
+    with tf32_off():
+        y, _, _ = bc.BranchChainFn.apply(x, bc.BN_EPS, *ws, *gs, *bs)
+        dy = torch.randn(y.shape, generator=gen, device=device)
+        got = torch.autograd.grad(y, params, dy)
+        ref = torch.autograd.grad(
+            bc.branch_chain_train_plain(x, ws, gs, bs).y, params, dy)
+    rel = [((g - r).norm() / r.norm()).item() for g, r in zip(got, ref)]
+    names = ["x"] + [f"{k}{i}" for k in ("w", "gamma", "beta")
+                     for i in range(2 * BLOCKS)]
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    log("chain-grad", f"BranchChainFn vs autograd through the plain chain "
+        f"{CHAIN_GRAD_SHAPE} x {BLOCKS} blocks float32: relative L2 per "
+        f"tensor max {rel[worst]:.3g} ({names[worst]}), dx {rel[0]:.3g}")
+    if not rel[worst] <= CHAIN_GRAD_REL_L2:
+        raise AssertionError(f"chain-grad: {names[worst]} off by "
+                             f"{rel[worst]} > {CHAIN_GRAD_REL_L2}")
+
+
+def fused_chains(model):
+    from fhpe_tpu_torch.models.pose_hrnet import BranchChain
+    return [m for m in model.modules()
+            if isinstance(m, BranchChain) and m.fused]
+
+
+def phase_hrnet_fpd_train(device, totals, label):
+    """The FPD W48 -> W32 train step at full width (bf16, batch 32):
+    launches per step, finite and falling losses, warm images/s, and a
+    profile with P5 against the unfused module chains on the same shapes.
+    Returns the trained state."""
+    import torch
+    from fhpe_tpu_torch.tools.profile_serve import kernel_group
+    from fhpe_tpu_torch.tools.train_parity import (HRNET_STUDENT_YAML,
+                                                   HRNET_TEACHER_YAML,
+                                                   hrnet_fpd_cfgs,
+                                                   pair_weights, train_batch)
+    from fhpe_tpu_torch.train import (create_train_state,
+                                      make_batch_preprocessor,
+                                      make_fpd_train_step)
+    from fhpe_tpu_torch.utils.dtype import autocast
+    from fhpe_tpu_torch.utils.profiling import (busy_ms, device_events,
+                                                device_ms)
+
+    scfg, tcfg = hrnet_fpd_cfgs()
+    t0 = time.perf_counter()
+    student, teacher = pair_weights(scfg, tcfg)
+    log("hrnet-train", f"He-scale W32 student and W48 teacher on the CPU in "
+        f"{time.perf_counter() - t0:.1f} s")
+    state = create_train_state(scfg, student, device=device)
+    teacher = teacher.to(device)
+    step = make_fpd_train_step(scfg, teacher, tcfg,
+                               prepare=make_batch_preprocessor(scfg))
+    batch = train_batch(scfg, TRAIN_BATCH, seed=17, device=device)
+    chains = {"student": fused_chains(state.model),
+              "teacher": fused_chains(teacher)}
+    shapes = {k: [] for k in chains}
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out, k=k: shapes[k].append(tuple(inp[0].shape)))
+        for k, ms in chains.items() for m in ms]
+    t0 = time.perf_counter()
+    step(state, batch)      # cuDNN algorithm choice; the kernels load
+    sync(device)
+    for hk in hooks:
+        hk.remove()
+    if not len(shapes["student"]) == len(shapes["teacher"]) == \
+            HRNET_CHAINS:
+        raise AssertionError(f"hrnet-train: chains run {shapes}")
+    log("hrnet-train", f"first step {time.perf_counter() - t0:.2f} s "
+        f"(student {HRNET_STUDENT_YAML.name}, teacher "
+        f"{HRNET_TEACHER_YAML.name}, bf16, batch {TRAIN_BATCH}); "
+        f"{HRNET_CHAINS} branch chains in each net")
+
+    losses = []
+
+    def run():
+        for _ in range(HRNET_TRAIN_STEPS):
+            losses.append(step(state, batch)[1])
+
+    _, counts = main_path_run(totals, run)
+    per_step = {"branch_chain_eval": HRNET_CHAINS,
+                "branch_chain_train": HRNET_CHAINS,
+                "conv3x3_wgrad": HRNET_P4_PER_STEP,
+                "decode_heatmaps": K1_PER_TRAIN_STEP,
+                "pairwise_oks": 0, "greedy_nms_mask": 0}
+    want = {k: on_card(device, v * HRNET_TRAIN_STEPS)
+            for k, v in per_step.items()}
+    if counts != want:
+        raise AssertionError(f"hrnet-train: launches {counts} for "
+                             f"{HRNET_TRAIN_STEPS} steps, want {want}")
+    first = check_finite("hrnet-train", losses[0])
+    last = check_finite("hrnet-train", losses[-1])
+    if not last["loss"] < first["loss"]:
+        raise AssertionError(f"hrnet-train: loss {first['loss']} -> "
+                             f"{last['loss']} over {HRNET_TRAIN_STEPS} "
+                             f"steps")
+    log("hrnet-train", f"{HRNET_TRAIN_STEPS} steps on one batch: loss "
+        f"{first['loss']:.6f} -> {last['loss']:.6f} (pose "
+        f"{first['pose_loss']:.6f} -> {last['pose_loss']:.6f}, kd "
+        f"{first['kd_loss']:.6f} -> {last['kd_loss']:.6f}); launches per "
+        f"step: " + ", ".join(f"{k} {counts[k] / HRNET_TRAIN_STEPS:g}"
+                              for k in per_step if per_step[k]))
+
+    def route(fused):
+        for m in (*chains["student"], *chains["teacher"]):
+            m.fused = fused
+
+    def rate(fused):
+        route(fused)
+        sync(device)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(state, batch)
+        sync(device)
+        return 3 * TRAIN_BATCH / (time.perf_counter() - t0)
+
+    # in turns with every chain unrouted (its blocks as modules: cuDNN
+    # convs, BatchNorm; P4 keeps their filter gradients): what P5 costs
+    # or saves end to end
+    rates = {True: [], False: []}
+    for fused in (True, False, False, True, True, False):
+        rates[fused].append(rate(fused))
+    route(True)
+    log("hrnet-train", f"warm FPD W48->W32 train step "
+        f"{sorted(rates[True])[1]:.1f} images/s with P5, "
+        f"{sorted(rates[False])[1]:.1f} with every chain unrouted (medians "
+        f"of 3 x 3 steps in turns, batch {TRAIN_BATCH}, bf16; teacher "
+        f"forward, student forward and backward, Adam) on {label}")
+    if device.type != "cuda":
+        return state
+
+    walls = []
+
+    def profiled():
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step(state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    # both routes: where the step's time goes with and without P5
+    for fused in (True, False):
+        route(fused)
+        walls.clear()
+        events = device_events(profiled)
+        busy = busy_ms(events)
+        groups = Counter()
+        for e in events:
+            groups[kernel_group(e["name"]) if e["cat"] == "kernel"
+                   else e["cat"]] += float(e["dur"]) / 1e3 / 2
+        log("hrnet-train", f"2 steps under the profiler, "
+            f"{'with P5' if fused else 'every chain unrouted'}: "
+            f"{walls[0]:.1f} ms, device busy {busy:.1f} ms (idle share "
+            f"{1 - busy / walls[0]:.3f}); {len(events) / 2:.1f} device ops "
+            f"per step; ms per step by group: "
+            + ", ".join(f"{g} {v:.2f}" for g, v in groups.most_common()))
+    route(True)
+
+    # P5 on one step's chain calls against the same chains run as modules
+    # (cuDNN), forward only, on random inputs of the step's shapes; copies
+    # of the student's chains, whose running statistics move
+    gen = torch.Generator(device=device).manual_seed(5)
+    calls = []
+    for k, train in (("teacher", False), ("student", True)):
+        for m, s in zip(chains[k], shapes[k]):
+            m = copy.deepcopy(m).train(train)
+            x = torch.randn(s, generator=gen, device=device).relu()
+            calls.append((m, x.to(torch.bfloat16)))
+
+    def run_chains(fused):
+        def fn():
+            for m, x in calls:
+                m.fused = fused
+                with torch.no_grad(), autocast(torch.bfloat16, device):
+                    m(x)
+        return fn
+
+    p1, u1, u2, p2 = (device_ms(run_chains(f), 3)
+                      for f in (True, False, False, True))
+    log("hrnet-train", f"one step's {len(calls)} chain forwards "
+        f"({HRNET_CHAINS} W48 eval, {HRNET_CHAINS} W32 train): P5 "
+        f"{p1:.3f}/{p2:.3f} ms, unfused modules "
+        f"(cuDNN) {u1:.3f}/{u2:.3f} ms device time")
+    return state
+
+
+def phase_hrnet_f32_parity(device) -> None:
+    """One float32 FPD W48 -> W32 step at full width, batch 2, from the same
+    weights: on the card (TF32 off) against the same port on the CPU, and
+    on the card with P5 against the card with every chain unrouted (its
+    blocks as modules)."""
+    from fhpe_tpu_torch.tools.train_parity import (describe, hrnet_fpd_cfgs,
+                                                   one_fpd_step, pair_weights,
+                                                   step_diff, tf32_off,
+                                                   train_batch)
+
+    scfg, tcfg = hrnet_fpd_cfgs("float32")
+    student, teacher = pair_weights(scfg, tcfg)
+    batch = train_batch(scfg, 2, seed=9, device="cpu")
+    with tf32_off():
+        card = one_fpd_step(scfg, tcfg, student, teacher, batch, device)
+        cpu = one_fpd_step(scfg, tcfg, student, teacher, batch, "cpu")
+        unrouted = (one_fpd_step(scfg, tcfg, student, teacher, batch,
+                                 device, fused=False)
+                    if device.type == "cuda" else card)
+    for run in (card, cpu, unrouted):
+        check_finite("hrnet-f32", run[1])
+    bad = []
+    for what, (a, b), bars in (
+            ("card vs CPU", (card, cpu), HRNET_PARITY_BARS),
+            ("P5 vs unrouted on the card", (card, unrouted),
+             HRNET_P5_STEP_BARS)):
+        diff = step_diff(a, b)
+        loss, stats, moments, off, live = diff
+        loss_tol, stats_tol, l2_tol, worst_tol, off_tol = bars
+        if (loss > loss_tol or stats > stats_tol or off > off_tol * live
+                or any(l2 > l2_tol or worst > worst_tol
+                       for l2, worst in moments.values())):
+            bad.append(what)
+        log("hrnet-f32", f"{what} (one FPD W48->W32 step, float32, TF32 "
+            f"off, batch 2): {describe(*diff)}")
+    if bad:
+        raise AssertionError(f"hrnet-f32: beyond the bars: {bad}")
+
+
+def coco_eval_batches(cfg, gt, device):
+    """Crops at the synthetic COCO people's boxes: (batches, all_boxes,
+    img_paths).  Each crop is noise; its targets are the ground-truth
+    keypoints mapped into it by the crop's affine; the last batch is
+    padded (valid 0)."""
+    import torch
+    from fhpe_tpu_torch.data.coco_synthetic import gt_boxes
+    from fhpe_tpu_torch.geometry.affine import (affine_transform,
+                                                get_affine_transform)
+    from fhpe_tpu_torch.ops.decode import make_inverse_transforms
+    w, h = (int(v) for v in cfg.MODEL.IMAGE_SIZE)
+    boxes, paths = gt_boxes(gt, cfg.DATASET.ROOT, COCO_SET, w / h)
+    kps = np.asarray([a["keypoints"] for a in gt["annotations"]]
+                     ).reshape(len(boxes), -1, 3)
+    n, j = kps.shape[:2]
+    joints = np.zeros((n, j, 2), np.float32)
+    for i in range(n):
+        t = get_affine_transform(boxes[i, :2], boxes[i, 2:4], 0, [w, h])
+        joints[i] = [affine_transform(p, t) for p in kps[i, :, :2]]
+    vis = (kps[:, :, 2] > 0).astype(np.float32)
+    inv = make_inverse_transforms(boxes[:, :2], boxes[:, 2:4],
+                                  [int(v) for v in cfg.MODEL.HEATMAP_SIZE])
+    rng = np.random.RandomState(8)
+    b = int(cfg.TEST.BATCH_SIZE_PER_GPU)
+    batches = []
+    for lo in range(0, n, b):
+        idx = np.arange(lo, lo + b) % n
+        batch = {"image": rng.randint(0, 256, (b, h, w, 3)).astype(np.uint8),
+                 "joints": joints[idx], "joints_vis": vis[idx],
+                 "inv_trans": inv[idx],
+                 "valid": (np.arange(lo, lo + b) < n).astype(np.float32)}
+        batches.append({k: torch.from_numpy(v).to(device)
+                        for k, v in batch.items()})
+    return batches, boxes, paths
+
+
+def phase_eval_coco(model, device, out_dir, totals) -> None:
+    """Validation of the trained W32: make_eval_step (flip test, a padded
+    last batch) on crops of the synthetic COCO set, then COCO AP through
+    make_evaluate_fn (rescore, OKS-NMS on the card)."""
+    import torch
+    from fhpe_tpu_torch.cli.common import make_evaluate_fn
+    from fhpe_tpu_torch.data import COCO_FLIP_PAIRS
+    from fhpe_tpu_torch.data.coco_synthetic import (synthetic_coco_gt,
+                                                    write_coco_gt)
+    from fhpe_tpu_torch.geometry.flip import flip_pair_permutation
+    from fhpe_tpu_torch.tools.train_parity import hrnet_fpd_cfgs
+    from fhpe_tpu_torch.train import make_batch_preprocessor, make_eval_step
+
+    cfg, _ = hrnet_fpd_cfgs()
+    cfg.defrost()
+    cfg.DATASET.ROOT = str(out_dir)
+    cfg.DATASET.TEST_SET = COCO_SET
+    cfg.freeze()
+    gt = synthetic_coco_gt(COCO_IMAGES, seed=0)
+    write_coco_gt(str(out_dir), COCO_SET, gt)
+    batches, boxes, paths = coco_eval_batches(cfg, gt, device)
+    step = make_eval_step(cfg, flip_pair_permutation(
+        int(cfg.MODEL.NUM_JOINTS), COCO_FLIP_PAIRS),
+        prepare=make_batch_preprocessor(cfg))
+    step(model, batches[0])     # warm
+    evaluate = make_evaluate_fn(cfg, device=device)
+    people, images = len(boxes), len(set(paths))
+
+    def run():
+        outs = [step(model, b) for b in batches]
+        preds = torch.cat([torch.cat([o["preds"], o["maxvals"][..., None]],
+                                     -1) for o in outs])[:people]
+        nv, _ = evaluate(cfg, preds.cpu().numpy(), str(out_dir), boxes,
+                         paths)
+        return outs, nv
+
+    (outs, nv), counts = main_path_run(totals, run)
+    want = {"branch_chain_eval": on_card(device, 2 * HRNET_CHAINS
+                                         * len(batches)),
+            "decode_heatmaps": on_card(device,
+                                       K1_PER_EVAL_BATCH * len(batches)),
+            "pairwise_oks": on_card(device, images),
+            "greedy_nms_mask": on_card(device, images),
+            "conv3x3_wgrad": 0, "branch_chain_train": 0}
+    if counts != want:
+        raise AssertionError(f"coco-eval: launches {counts}, want {want}")
+    losses = [o["loss"].item() for o in outs]
+    if len(nv) != 10 or not all(math.isfinite(v) for v in nv.values()) \
+            or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"coco-eval: stats {dict(nv)}, losses {losses}")
+    hits = int(sum(o["hits"] for o in outs).sum())
+    valids = int(sum(o["valids"] for o in outs).sum())
+    log("coco-eval", f"{len(batches)} batches of {len(batches[0]['valid'])} "
+        f"({people} people, {images} images, flip test on): P5e launches "
+        f"{counts['branch_chain_eval']} ({2 * HRNET_CHAINS} per batch), "
+        f"decode {counts['decode_heatmaps']}, OKS/greedy "
+        f"{counts['pairwise_oks']}/{counts['greedy_nms_mask']}; loss "
+        f"{np.mean(losses):.6f}, PCK hits/valids {hits}/{valids}; 10 stats "
+        f"finite: " + ", ".join(f"{k} {v:.4f}" for k, v in nv.items()))
+
+
 def mpii_eval_batches(cfg, gt, device):
     """Crops of the synthetic MPII people: (batches, centers, scales).
     Each crop is noise; its targets are the ground-truth joints mapped
@@ -996,7 +1607,8 @@ def phase_eval_mpii(model, device, out_dir, totals) -> None:
                                                   for b in batches])
     want = {"decode_heatmaps": on_card(device,
                                        K1_PER_EVAL_BATCH * len(batches)),
-            "conv3x3_wgrad": 0, "pairwise_oks": 0, "greedy_nms_mask": 0}
+            "conv3x3_wgrad": 0, "pairwise_oks": 0, "greedy_nms_mask": 0,
+            "branch_chain_eval": 0, "branch_chain_train": 0}
     if counts != want:
         raise AssertionError(f"eval: launches {counts}, want {want}")
     preds = torch.cat([torch.cat([o["preds"], o["maxvals"][..., None]], -1)
@@ -1048,7 +1660,9 @@ def main() -> int:
 
     stats = {"decode_heatmaps": phase_kernel_vs_plain(device),
              **phase_nms_kernels(device),
-             "conv3x3_wgrad": phase_wgrad_kernel(device)}
+             "conv3x3_wgrad": phase_wgrad_kernel(device),
+             **phase_chain_kernels(device)}
+    phase_chain_grad(device)
     totals = Counter()
 
     student = serve_cfg(STUDENT_YAML)
@@ -1080,6 +1694,11 @@ def main() -> int:
     phase_f32_train_parity(device)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         phase_eval_mpii(state.model, device, Path(tmp), totals)
+
+    state = phase_hrnet_fpd_train(device, totals, label)
+    phase_hrnet_f32_parity(device)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        phase_eval_coco(state.model, device, Path(tmp), totals)
 
     for name in KERNELS:
         if totals[name] <= 0:

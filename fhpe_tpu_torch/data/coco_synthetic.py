@@ -49,6 +49,30 @@ def synthetic_coco_gt(num_images: int, seed: int = 0) -> dict:
             "categories": [{"id": 1, "name": "person"}]}
 
 
+def synthetic_train_batch(n: int, seed: int = 0, image_size=(192, 256),
+                          num_joints: int = NUM_JOINTS) -> dict:
+    """A COCO training batch as ``make_batch_preprocessor`` takes it
+    (``TPU.DEVICE_PREPROCESS``): ``image`` (n, H, W, 3) uint8 crops,
+    ``joints`` (n, J, 2) float32 in crop pixels and ``joints_vis`` (n, J)
+    float32.  Per crop one person filling 60-95% of its height, joints
+    ordered top to bottom as COCO's are roughly, about one in six
+    unlabeled (v = 0, coordinates 0) and a few off the crop's edge, as
+    half-body and rotation augmentation leave them.  ``image_size`` is
+    (W, H), as ``MODEL.IMAGE_SIZE``."""
+    rng = np.random.RandomState(seed)
+    w, h = image_size
+    image = rng.randint(0, 256, (n, h, w, 3)).astype(np.uint8)
+    tall = rng.uniform(0.6, 0.95, (n, 1)) * h
+    top = rng.uniform(-0.05 * h, h - tall)
+    cx = rng.uniform(0.3, 0.7, (n, 1)) * w
+    xs = cx + rng.uniform(-0.3, 0.3, (n, num_joints)) * tall * 0.5
+    ys = top + np.sort(rng.uniform(0.0, 1.0, (n, num_joints)), -1) * tall
+    vis = (rng.uniform(size=(n, num_joints)) >= 0.17).astype(np.float32)
+    joints = np.stack([xs, ys], -1) * vis[..., None]
+    return {"image": image, "joints": joints.astype(np.float32),
+            "joints_vis": vis}
+
+
 def write_coco_gt(root: str, image_set: str, gt: dict) -> str:
     """Write ``gt`` where the evaluator looks for it:
     ``<root>/annotations/person_keypoints_<image_set>.json``."""

@@ -182,19 +182,22 @@ def param_count(module: nn.Module) -> int:
 
 def bf16_flow_violations(model: nn.Module, x: torch.Tensor):
     """Run ``model(x)`` in the bf16 autocast the Predictor uses; return
-    the number of modules checked and the list of those that break
-    ``fhpe_tpu``'s flow, as ``(name, input dtype, output dtype)``.
+    the number of checks (modules whose forward ran, and the heatmaps)
+    and the list of those that break ``fhpe_tpu``'s flow, as ``(name,
+    input dtype, output dtype)``.
 
     The flow: every conv, BatchNorm and block of ``model.flow_blocks``
     takes and emits bf16 (the stem conv ``conv1`` takes the float32
     image), and the heatmaps (every stack's, for the hourglass) come out
-    float32.
+    float32.  A module that a fused chain bypasses (HRNet's blocks inside
+    a ``BranchChain``) never runs and is not counted; the chain is.
     """
     checked = (nn.Conv2d, nn.BatchNorm2d, *model.flow_blocks)
-    bad, hooks = [], []
+    bad, hooks, ran = [], [], set()
 
     def hook(name):
         def record(module, inputs, out):
+            ran.add(name)
             want = torch.float32 if name == "conv1" else torch.bfloat16
             if inputs[0].dtype != want or out.dtype != torch.bfloat16:
                 bad.append((name, inputs[0].dtype, out.dtype))
@@ -213,7 +216,7 @@ def bf16_flow_violations(model: nn.Module, x: torch.Tensor):
         outs = [outs]
     bad += [(f"heatmaps.{i}", torch.bfloat16, o.dtype)
             for i, o in enumerate(outs) if o.dtype != torch.float32]
-    return len(hooks) + len(outs), bad
+    return len(ran) + len(outs), bad
 
 
 def _he_scale_draws(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:

@@ -27,8 +27,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import (BasicBlock, Bottleneck, UpsampleNearest, batch_norm,
-                     conv)
+from ..ops.branch_chain import BranchChainFn, branch_chain_eval
+from .common import (BasicBlock, Bottleneck, Conv3x3, UpsampleNearest,
+                     batch_norm, conv)
 
 BLOCKS = {"BASIC": BasicBlock, "BOTTLENECK": Bottleneck}
 
@@ -42,12 +43,74 @@ def _conv_bn(in_ch: int, out_ch: int, kernel: int, stride: int,
     return nn.Sequential(*layers)
 
 
+class BranchChain(nn.Sequential):
+    """One branch's blocks (``fhpe_tpu``'s ``BranchChain``), keyed as the
+    reference's ``nn.Sequential``.
+
+    A chain of BASIC blocks with identity residuals (every branch of a
+    ``HighResolutionModule``) runs as one P5 call
+    (``ops/branch_chain.py``): ``branch_chain_eval`` in eval mode,
+    ``BranchChainFn`` in train mode, which returns the batch statistics;
+    the running statistics then move as ``nn.BatchNorm2d`` moves them
+    (momentum, or the cumulative average when it is None; Bessel-corrected
+    variance).  Under autocast the chain gets the bf16 copies of x and the
+    conv weights, as ``Conv3x3`` does; BatchNorm parameters stay float32.
+    Any other chain (a projecting first block, Bottlenecks), one with
+    ``fused`` set to False, or an eval-mode chain with gradients on (the
+    eval kernel has no backward; a frozen-BN fine-tune) runs its blocks
+    one by one.
+    """
+
+    def __init__(self, *blocks):
+        super().__init__(*blocks)
+        self.fused = all(isinstance(b, BasicBlock) and b.downsample is None
+                         and isinstance(b.conv1, Conv3x3) for b in blocks)
+
+    def forward(self, x):
+        if not self.fused or (not self.training and torch.is_grad_enabled()):
+            return super().forward(x)
+        convs = [cv for b in self for cv in (b.conv1, b.conv2)]
+        bns = [bn for b in self for bn in (b.bn1, b.bn2)]
+        weights = [cv.weight for cv in convs]
+        dev = x.device.type
+        if torch.is_autocast_enabled(dev):
+            dt = torch.get_autocast_dtype(dev)
+            x, weights = x.to(dt), [w.to(dt) for w in weights]
+        gammas = [bn.weight for bn in bns]
+        betas = [bn.bias for bn in bns]
+        eps = bns[0].eps
+        if not self.training:
+            return branch_chain_eval(
+                x, weights, gammas, betas, [bn.running_mean for bn in bns],
+                [bn.running_var for bn in bns], eps)
+        y, mean, var = BranchChainFn.apply(x, eps, *weights, *gammas, *betas)
+        _update_running_stats(bns, mean, var, x.numel() // x.shape[1])
+        return y
+
+
+@torch.no_grad()
+def _update_running_stats(bns, mean, var, n: int) -> None:
+    """``nn.BatchNorm2d``'s train-mode update of each BN's running mean and
+    (Bessel-corrected) variance from the batch statistics rows."""
+    torch._foreach_add_([bn.num_batches_tracked for bn in bns], 1)
+    # momentum None: the cumulative moving average
+    fs = [1.0 / float(bn.num_batches_tracked) if bn.momentum is None
+          else bn.momentum for bn in bns]
+    bessel = n / max(n - 1, 1)
+    for key, batch, scale in (("running_mean", mean, 1.0),
+                              ("running_var", var, bessel)):
+        running = [getattr(bn, key) for bn in bns]
+        torch._foreach_mul_(running, [1.0 - f for f in fs])
+        torch._foreach_add_(running, torch._foreach_mul(
+            list(batch.unbind(0)), [f * scale for f in fs]))
+
+
 def _branch(block, inplanes: int, planes: int, num_blocks: int):
     """``num_blocks`` blocks at ``planes`` (the first may project)."""
     out_ch = planes * block.expansion
     layers = [block(inplanes, planes, downsample=inplanes != out_ch)]
     layers += [block(out_ch, planes) for _ in range(1, num_blocks)]
-    return nn.Sequential(*layers)
+    return BranchChain(*layers)
 
 
 class HighResolutionModule(nn.Module):
@@ -123,7 +186,7 @@ class PoseHighResolutionNet(nn.Module):
     in at least float32 (bf16 compute under autocast is cast up, as
     ``fhpe_tpu`` does)."""
 
-    flow_blocks = (BasicBlock, Bottleneck, UpsampleNearest)
+    flow_blocks = (BasicBlock, Bottleneck, UpsampleNearest, BranchChain)
 
     def __init__(self, stage2: dict, stage3: dict, stage4: dict,
                  num_joints: int = 17, final_conv_kernel: int = 1):

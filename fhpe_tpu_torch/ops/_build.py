@@ -107,6 +107,15 @@ def load_library() -> ctypes.CDLL:
     lib.fhpe_conv3x3_wgrad.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
                                        ci, ci, vp]
     lib.fhpe_conv3x3_wgrad.restype = ci
+    pp = ctypes.POINTER(vp)
+    lib.fhpe_branch_chain_eval.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci,
+                                           ci, pp, pp, pp, pp, pp,
+                                           ctypes.c_float, vp]
+    lib.fhpe_branch_chain_eval.restype = ci
+    lib.fhpe_branch_chain_train.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci,
+                                            ci, ci, ci, ci, ci, pp, pp, pp,
+                                            ctypes.c_float, vp]
+    lib.fhpe_branch_chain_train.restype = ci
     lib.fhpe_cuda_error_string.argtypes = [ci]
     lib.fhpe_cuda_error_string.restype = ctypes.c_char_p
     return lib

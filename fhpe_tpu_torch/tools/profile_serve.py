@@ -48,6 +48,7 @@ TURNS = 3       # (A, B, B, A) rounds of the served-rate comparison
 KERNEL_GROUPS = (
     ("decode_kernel", "decode kernel"),
     ("wgrad_", "conv wgrad kernel (P4)"),
+    ("chain_", "branch chain kernel (P5)"),
     ("multi_tensor_apply", "optimizer"),
     ("reduce_kernel", "reductions"),
     ("batch_norm", "batchnorm"),

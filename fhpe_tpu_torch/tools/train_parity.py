@@ -3,15 +3,20 @@
     python3 -m fhpe_tpu_torch.tools.train_parity [--device cuda|cpu]
         [--stacks 4 --features 128 --image-size 256 --batch 2]
         [--teacher-stacks 8 --teacher-features 256]
+    python3 -m fhpe_tpu_torch.tools.train_parity --pair hrnet
+        [--width 32 --teacher-width 48 --image-size 256 --blocks 4]
 
 Runs one FPD step (``make_fpd_train_step``, Adam, TF32 off) from the same
 seeded weights and batch several ways: on the CPU in float64 (the
 reference) and float32, and with ``--device cuda`` on the card in
-float32 with the P4 filter-gradient kernel and with cuDNN's filter
-gradient in P4's place.  For each pair it prints how far the losses, the
-BN running statistics, Adam's moments and the updated parameters are
-apart.  The defaults are the FPD hourglass pair at full width.
-``chip_smoke.py`` phase 13 uses the same helpers.
+float32 with the port's kernels and with one of them swapped for
+PyTorch's own: for the hourglass pair cuDNN's filter gradient in P4's
+place, for HRNet every branch chain unrouted from P5 (its blocks run as
+modules).  For each pair it prints how far the losses, the BN running
+statistics, Adam's moments and the updated parameters are apart.  The
+defaults are the FPD pairs at full width: the hourglass (MPII) and
+HRNet-W32 by W48 (COCO; ``--image-size`` is the height, the width
+three quarters of it).  ``chip_smoke.py`` uses the same helpers.
 """
 
 from __future__ import annotations
@@ -26,13 +31,17 @@ import numpy as np
 import torch
 
 from ..config import load_config
+from ..data.coco_synthetic import synthetic_train_batch
 from ..models import common, get_pose_net
+from ..models.pose_hrnet import BranchChain
 from ..train import (create_train_state, make_batch_preprocessor,
                      make_fpd_train_step)
 
 REPO = Path(__file__).resolve().parents[2]
 STUDENT_YAML = REPO / "experiments/fpd_mpii/hourglass/hg4_128_fpd_student.yaml"
 TEACHER_YAML = REPO / "experiments/mpii/hourglass/hg8_256x256_teacher.yaml"
+HRNET_STUDENT_YAML = REPO / "experiments/fpd_coco/hrnet/w32_fpd_student.yaml"
+HRNET_TEACHER_YAML = REPO / "experiments/coco/hrnet/w48_256x192_teacher.yaml"
 
 
 def fpd_cfgs(dtype="bfloat16", stacks=None, features=None, image_size=None,
@@ -56,9 +65,43 @@ def fpd_cfgs(dtype="bfloat16", stacks=None, features=None, image_size=None,
             load(TEACHER_YAML, [], teacher_stacks, teacher_features))
 
 
+def hrnet_fpd_cfgs(dtype="bfloat16", width=None, teacher_width=None,
+                   image_size=None, blocks=None, modules=None):
+    """The COCO FPD pair (student W32, ``KD.ALPHA`` 0.5; teacher W48),
+    optionally cut: base ``width``, image height ``image_size`` (width
+    three quarters of it), ``blocks`` per branch and ``modules`` per stage
+    at most."""
+    def load(path, w):
+        opts = ["TPU.COMPUTE_DTYPE", dtype]
+        if w:
+            opts += [o for s in (2, 3, 4) for o in (
+                f"MODEL.EXTRA.STAGE{s}.NUM_CHANNELS",
+                str([w * 2 ** i for i in range(s)]))]
+        if image_size:
+            h, iw = image_size, image_size * 3 // 4
+            opts += ["MODEL.IMAGE_SIZE", f"[{iw},{h}]",
+                     "MODEL.HEATMAP_SIZE", f"[{iw // 4},{h // 4}]"]
+        for s in (2, 3, 4):
+            if blocks:
+                opts += [f"MODEL.EXTRA.STAGE{s}.NUM_BLOCKS",
+                         str([blocks] * s)]
+            if modules:
+                opts += [f"MODEL.EXTRA.STAGE{s}.NUM_MODULES",
+                         str(min(modules, (1, 4, 3)[s - 2]))]
+        return load_config(str(path), opts)
+    return (load(HRNET_STUDENT_YAML, width),
+            load(HRNET_TEACHER_YAML, teacher_width))
+
+
 def train_batch(cfg, n, seed, device):
     """A DEVICE_PREPROCESS batch: uint8 crops, joints in crop pixels (a
-    few off the crop), joints_vis."""
+    few off the crop), joints_vis; for COCO configs
+    ``data/coco_synthetic.py::synthetic_train_batch``."""
+    if cfg.DATASET.DATASET == "coco":
+        batch = synthetic_train_batch(
+            n, seed, tuple(int(v) for v in cfg.MODEL.IMAGE_SIZE),
+            int(cfg.MODEL.NUM_JOINTS))
+        return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
     rng = np.random.RandomState(seed)
     w, h = (int(v) for v in cfg.MODEL.IMAGE_SIZE)
     j = int(cfg.MODEL.NUM_JOINTS)
@@ -69,6 +112,27 @@ def train_batch(cfg, n, seed, device):
              "joints_vis": (rng.uniform(size=(n, j)) > 0.1
                             ).astype(np.float32)}
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def pair_weights(scfg, tcfg):
+    """Seeded student and teacher on the CPU: torch's default init from
+    seeds 0 and 100 for the hourglass; for HRNet He-scale weights with BN
+    statistics from one batch (``models/common.py::he_scale_weights``),
+    since the reference init gives heatmaps of ~0."""
+    if scfg.MODEL.NAME == "pose_hrnet":
+        models = []
+        for cfg, seed in ((scfg, 0), (tcfg, 100)):
+            model = get_pose_net(cfg)
+            w, h = (int(v) for v in cfg.MODEL.IMAGE_SIZE)
+            common.he_scale_weights(model, seed, (h, w))
+            models.append(model)
+        return tuple(models)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        student = get_pose_net(scfg)
+        torch.manual_seed(100)
+        teacher = get_pose_net(tcfg)
+    return student, teacher
 
 
 def cudnn_wgrad(x, dy, weight):
@@ -97,16 +161,21 @@ def tf32_off():
             torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def one_fpd_step(scfg, tcfg, student, teacher, batch, device, wgrad=None):
+def one_fpd_step(scfg, tcfg, student, teacher, batch, device, wgrad=None,
+                 fused=True):
     """One FPD step on copies of ``student`` and ``teacher`` (CPU modules)
-    on ``device``, in the configs' compute dtype; ``wgrad`` replaces P4.
-    Returns (state, {loss, pose_loss, kd_loss} as floats)."""
+    on ``device``, in the configs' compute dtype; ``wgrad`` replaces P4;
+    ``fused=False`` unroutes every HRNet branch chain from P5.  Returns
+    (state, {loss, pose_loss, kd_loss} as floats)."""
     device = torch.device(device)
     state = create_train_state(scfg, copy.deepcopy(student), device=device)
     dtype = next(state.model.parameters()).dtype
-    step = make_fpd_train_step(scfg, copy.deepcopy(teacher).to(device,
-                                                                dtype),
-                               tcfg, prepare=make_batch_preprocessor(scfg))
+    teacher = copy.deepcopy(teacher).to(device, dtype)
+    for m in (*state.model.modules(), *teacher.modules()):
+        if isinstance(m, BranchChain):
+            m.fused = m.fused and fused
+    step = make_fpd_train_step(scfg, teacher, tcfg,
+                               prepare=make_batch_preprocessor(scfg))
     with (mock.patch.object(common, "conv3x3_wgrad", wgrad) if wgrad
           else contextlib.nullcontext()):
         state, metrics = step(state, {k: v.to(device)
@@ -163,28 +232,38 @@ def describe(loss, stats, moments, off, live) -> str:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--pair", default="hourglass",
+                    choices=("hourglass", "hrnet"))
     ap.add_argument("--stacks", type=int)
     ap.add_argument("--features", type=int)
     ap.add_argument("--teacher-stacks", type=int)
     ap.add_argument("--teacher-features", type=int)
+    ap.add_argument("--width", type=int)
+    ap.add_argument("--teacher-width", type=int)
+    ap.add_argument("--blocks", type=int)
+    ap.add_argument("--modules", type=int)
     ap.add_argument("--image-size", type=int)
     ap.add_argument("--batch", type=int, default=2)
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("train_parity: --device cuda needs a GPU")
 
-    cuts = dict(stacks=args.stacks, features=args.features,
-                image_size=args.image_size,
-                teacher_stacks=args.teacher_stacks,
-                teacher_features=args.teacher_features)
+    if args.pair == "hrnet":
+        def cfgs(dtype):
+            return hrnet_fpd_cfgs(dtype, args.width, args.teacher_width,
+                                  args.image_size, args.blocks, args.modules)
+        swap, swapped = dict(fused=False), "card float32, P5 unrouted"
+    else:
+        def cfgs(dtype):
+            return fpd_cfgs(dtype, args.stacks, args.features,
+                            args.image_size, args.teacher_stacks,
+                            args.teacher_features)
+        swap = dict(wgrad=cudnn_in_p4s_place)
+        swapped = "card float32, cuDNN wgrad"
     runs = {}
     for dtype in ("float64", "float32"):
-        scfg, tcfg = fpd_cfgs(dtype, **cuts)
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(0)
-            student = get_pose_net(scfg)
-            torch.manual_seed(100)
-            teacher = get_pose_net(tcfg)
+        scfg, tcfg = cfgs(dtype)
+        student, teacher = pair_weights(scfg, tcfg)
         batch = train_batch(scfg, args.batch, seed=9, device="cpu")
         with tf32_off():
             runs[f"cpu {dtype}"] = one_fpd_step(scfg, tcfg, student,
@@ -192,15 +271,13 @@ def main(argv=None) -> None:
             if dtype == "float32" and args.device == "cuda":
                 runs["card float32"] = one_fpd_step(
                     scfg, tcfg, student, teacher, batch, "cuda")
-                runs["card float32, cuDNN wgrad"] = one_fpd_step(
-                    scfg, tcfg, student, teacher, batch, "cuda",
-                    cudnn_in_p4s_place)
+                runs[swapped] = one_fpd_step(scfg, tcfg, student, teacher,
+                                             batch, "cuda", **swap)
     if args.device == "cuda":
         print(torch.cuda.get_device_name(0), flush=True)
     pairs = [(a, "cpu float64") for a in runs if a != "cpu float64"]
     if args.device == "cuda":
-        pairs += [("card float32", "cpu float32"),
-                  ("card float32", "card float32, cuDNN wgrad")]
+        pairs += [("card float32", "cpu float32"), ("card float32", swapped)]
     for a, b in pairs:
         print(f"{a} vs {b}: {describe(*step_diff(runs[a], runs[b]))}",
               flush=True)

@@ -142,16 +142,24 @@ def test_hrnet_eval_forward_matches_jax(seed):
 
 
 def test_hrnet_bf16_dtype_flow(monkeypatch):
-    """Every conv, BN, block and fuse upsample takes and emits bf16 under
-    the port's autocast; the heatmaps come out float32.  An upsample that
-    emits float32 (what CUDA autocast does to ``F.interpolate``) must be
-    caught at the first fuse."""
+    """Every conv, BN, block, branch chain and fuse upsample that runs
+    takes and emits bf16 under the port's autocast; the heatmaps come out
+    float32.  The blocks inside a fused ``BranchChain`` do not run (the
+    chain is one P5 call), so the count is every checked module but those
+    75 (the 13 chains hold 15 blocks, 30 convs and 30 BNs), plus the
+    heatmaps: 127.
+    An upsample that emits float32 (what CUDA autocast does to
+    ``F.interpolate``) must be caught at the first fuse."""
     port = get_pose_net(hrnet_cfg()).eval()
     x = torch.randn(2, 3, H, W)
     checked, bad = bf16_flow_violations(port, x)
-    assert checked == 1 + sum(isinstance(m, (
+    chains = [m for m in port.modules()
+              if isinstance(m, pose_hrnet.BranchChain) and m.fused]
+    inside = {id(s) for ch in chains for s in ch.modules() if s is not ch}
+    assert len(chains) == 13 and len(inside) == 75
+    assert checked == 127 == 1 + sum(isinstance(m, (
         torch.nn.Conv2d, torch.nn.BatchNorm2d, *port.flow_blocks))
-        for m in port.modules())
+        and id(m) not in inside for m in port.modules())
     assert bad == []
 
     monkeypatch.setattr(pose_hrnet.UpsampleNearest, "forward",

@@ -34,7 +34,8 @@ EXPERIMENTS = sorted(os.path.relpath(p, REPO) for p in glob.glob(
 def test_port_imports_no_jax():
     """In a fresh interpreter (this one already holds JAX via conftest),
     with ``FHPE_PLATFORM`` set: ``import fhpe_tpu`` imports JAX then, so
-    the port must not touch the JAX package at all.  Every module of the
+    the port must not touch the JAX package at all, nor the probes under
+    ``scripts/`` whose kernels it ports (P4, P5).  Every module of the
     port is imported (found by walking the package), and ``chip_smoke.py``
     by its path, without running its ``main``."""
     code = ("import importlib, importlib.util, pkgutil, sys\n"
@@ -49,16 +50,18 @@ def test_port_imports_no_jax():
             "fhpe_tpu_torch.config.load_config("
             "'experiments/coco/hrnet/w32_256x192_adam_lr1e-3.yaml')\n"
             "bad = sorted(m for m in sys.modules "
-            "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'fhpe_tpu'))\n"
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'fhpe_tpu', "
+            "'scripts', 'fused_block', 'fused_block_kernels', "
+            "'dw_pallas_probe'))\n"
             "assert not bad, bad\n"
             "print(len(names))\n")
     env = dict(os.environ, FHPE_PLATFORM="cpu")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    # every module of the port, the new ones of the training slice among
-    # them
-    assert int(proc.stdout.split()[-1]) >= 39, proc.stdout
+    # every module of the port, the HRNet training slice's
+    # ops/branch_chain.py and ops/branch_chain_cases.py among them
+    assert int(proc.stdout.split()[-1]) >= 41, proc.stdout
 
 
 @pytest.mark.parametrize("path", EXPERIMENTS)
