@@ -21,7 +21,14 @@ user calls, with random weights from a seed:
   batch 32, Adam lr 1e-3), the same entry points: every branch chain
   through P5 (the teacher's and the eval step's in eval mode, the
   student's in train mode, its backward through P4), then validation:
-  ``make_eval_step`` -> ``make_evaluate_fn`` (COCO AP).
+  ``make_eval_step`` -> ``make_evaluate_fn`` (COCO AP);
+* PoseResNet-50 on COCO 256x192 (``res50_256x192_d256x3_adam_lr1e-3.yaml``,
+  He-scale weights from a seed): serving through ``Predictor``, the plain
+  train step (``create_train_state`` -> ``make_batch_preprocessor`` ->
+  ``make_train_step``, bf16, batch 32, Adam lr 1e-3), then validation
+  (``make_eval_step`` -> ``make_evaluate_fn``, COCO AP); its 13 stride-1
+  3x3 convs run their forwards on the conv3x3_fwd kernel (the port of the
+  conv probes P1-P3) and their filter gradients on P4.
 
 Phases; any failure raises and exits non-zero:
 
@@ -91,10 +98,31 @@ Phases; any failure raises and exits non-zero:
 19. validation of the trained W32: ``make_eval_step`` (flip test, a padded
     last batch) on crops of phase 10's synthetic COCO set, then COCO AP
     through ``make_evaluate_fn``: 52 P5e and 3 decode launches per batch,
-    one OKS and one greedy launch per image, 10 finite stats.
+    one OKS and one greedy launch per image, 10 finite stats;
+20. the conv3x3_fwd kernel against its plain version on the four RN-50
+    3x3 shapes at batch 32, the probes' shape and edge cases (B = 1 and 3,
+    C = 8 and 40, 1x1 and 3x130 images), bf16 -> bf16, bf16 -> float32 and
+    float32 -> float32, TF32 off, at the bars of ``CONV_*``; two runs
+    bit-equal; then the device time of the kernel, its plain version and
+    ``F.conv2d`` (cuDNN, timed, never used) at those shapes;
+21. RN-50 serve in bf16 with the checks of phase 5 (26 conv3x3_fwd
+    launches per chunk), then float32 card-vs-CPU parity at phase 6's bars
+    inside a main-path window (the float32-out kernel, 26 per Predictor
+    forward pair);
+22. the RN-50 plain train step at full width (bf16, batch 32, Adam lr
+    1e-3): per step 13 conv3x3_fwd, 13 P4 and 2 decode launches, finite
+    losses falling over 10 steps on one batch, warm train images/s in
+    turns with the route off (cuDNN forwards), a profile of each route,
+    and the kernel on one step's 13 conv shapes against cuDNN's forward;
+23. float32 RN-50 step parity (TF32 off, batch 2): card against CPU at
+    phase 13's bars, card with the route against card without it at the
+    bars of ``RN50_ROUTE_STEP_BARS``;
+24. validation of the trained RN-50 as phase 19: 26 conv3x3_fwd and 3
+    decode launches per batch, one OKS and one greedy launch per image,
+    10 finite stats.
 
-Phases 15 and 16 run right after 11; W32 serving (phases 8 and 10) also
-counts 52 P5e launches per chunk.
+Phases 15, 16 and 20 run right after 11; W32 serving (phases 8 and 10)
+also counts 52 P5e launches per chunk.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; comparisons of a kernel with its plain version run outside
@@ -202,6 +230,32 @@ HRNET_PARITY_BARS = (TRAIN_PARITY_LOSS_RTOL, TRAIN_PARITY_STATS_RTOL,
 # CPU's where the chaos allows (BN stats and parameters 20x, moments 3x):
 HRNET_P5_STEP_BARS = (1e-5, 1e-4, 0.03, 0.5, 1e-3)
 
+# PoseResNet-50 (COCO 256x192): 13 stride-1 3x3 convs (3, 3, 5 and 2 in
+# layers 1-4), each a conv3x3_fwd launch per forward and a P4 launch per
+# train step.
+RN50_YAML = REPO / "experiments/coco/resnet/res50_256x192_d256x3_adam_lr1e-3.yaml"
+RN50_ROUTED = 13
+RN50_TRAIN_STEPS = 10      # on one repeated batch: the loss must fall
+# conv3x3_fwd against its plain version: float32 out within CONV_F32_REL_TOL
+# of max|y|, because only the order of the float32 sums differs (bf16
+# products are exact in float32; the tensor cores' sums and the CUDA
+# cores' fmaf against cuBLAS); bf16 out within one bf16 ulp of the plain
+# value elementwise plus that same float32 slack, because two float32
+# sums that differ by d round at most one ulp plus d apart (near 0, where
+# a 9C-term sum cancels, d exceeds the ulp).
+CONV_F32_REL_TOL = 1e-5
+# float32 RN-50 step parity (full width, batch 2, TF32 off), as (loss
+# rtol, BN stats, moments relative L2, worst moment tensor, share of live
+# parameters off by > 1% of lr): card with the conv3x3_fwd route against
+# the card with cuDNN's forwards in its place.  The route changes the 13
+# convs' outputs by float32 rounding (phase 20: ~2e-6 of max|y|), which
+# train-mode BN over two samples amplifies as it amplifies card against
+# CPU; measured on an H100: losses equal, BN stats 7.0e-8, moments 2.5e-4
+# and 2.8e-4 relative L2 (worst tensor 6.5e-4), no live parameter off;
+# card against CPU 8.3e-7, 7.2e-6, 2.9e-2 and 3.4e-2 (worst 0.20), 0.54%
+# off.  About 10x above the route's own numbers:
+RN50_ROUTE_STEP_BARS = (1e-6, 1e-6, 3e-3, 1e-2, 1e-4)
+
 # Card peaks for the bound (NVIDIA H100 SXM data sheet, dense).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -226,6 +280,12 @@ KERNELS = {
     "branch_chain_train": {
         "source": "fhpe_tpu_torch/ops/csrc/branch_chain.cu",
         "replaces": "scripts/probe/fused_block/fused_block_kernels.py:128"},
+    # bf16 out: P2 and P3 (pc_test.py:20, pallas_conv_probe2.py:46,77,111)
+    "conv3x3_fwd": {"source": "fhpe_tpu_torch/ops/csrc/conv3x3_fwd.cu",
+                    "replaces": "scripts/probe/pallas_conv_probe2.py:46"},
+    # float32 out: P1 (pallas_conv_probe.py:40,75)
+    "conv3x3_fwd_f32": {"source": "fhpe_tpu_torch/ops/csrc/conv3x3_fwd.cu",
+                        "replaces": "scripts/probe/pallas_conv_probe.py:40"},
 }
 # P5 (a whole BasicBlock chain) against its plain version on the card,
 # TF32 off.  In bf16 both round at four places per block and sum each conv
@@ -289,7 +349,8 @@ def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S
 # -- launch counts of the main path -----------------------------------------
 
 def _counters():
-    from fhpe_tpu_torch.ops import branch_chain, conv_wgrad, decode, nms_torch
+    from fhpe_tpu_torch.ops import (branch_chain, conv3x3_fwd, conv_wgrad,
+                                    decode, nms_torch)
     return {"decode_heatmaps": (decode, "decode_kernel_launches"),
             "pairwise_oks": (nms_torch, "pairwise_oks_launches"),
             "greedy_nms_mask": (nms_torch, "greedy_nms_launches"),
@@ -297,7 +358,25 @@ def _counters():
             "branch_chain_eval": (branch_chain,
                                   "branch_chain_eval_launches"),
             "branch_chain_train": (branch_chain,
-                                   "branch_chain_train_launches")}
+                                   "branch_chain_train_launches"),
+            "conv3x3_fwd": (conv3x3_fwd, "conv3x3_fwd_launches"),
+            "conv3x3_fwd_f32": (conv3x3_fwd, "conv3x3_fwd_f32_launches")}
+
+
+def expected(device, **launches) -> dict:
+    """The counts a main-path run should read: ``launches`` of the kernels
+    named, 0 of every other (all 0 on the CPU, see :func:`on_card`)."""
+    return {name: on_card(device, launches.get(name, 0)) for name in KERNELS}
+
+
+def fwd_launches(model, dtype, forwards: int) -> dict:
+    """conv3x3_fwd launches of ``forwards`` forwards of ``model`` in
+    ``dtype``, keyed by the kernel's output type (26 per RN-50 flip-test
+    chunk; none for the hourglass or HRNet)."""
+    import torch
+    from fhpe_tpu_torch.models.common import fwd_kernel_convs
+    key = "conv3x3_fwd" if dtype == torch.bfloat16 else "conv3x3_fwd_f32"
+    return {key: len(fwd_kernel_convs(model)) * forwards}
 
 
 def main_path_run(totals: Counter, fn):
@@ -564,17 +643,20 @@ def phase_serve(phase, cfg, model, device, requests, seed, totals,
     for n, (preds, maxvals) in zip(requests, outs):
         check_outputs(phase, preds, maxvals, n, num_joints)
     per_chunk = chains_per_chunk(p)
-    want = {"decode_heatmaps": on_card(device, chunks),
-            "branch_chain_eval": on_card(device, per_chunk * chunks),
-            "pairwise_oks": 0, "greedy_nms_mask": 0, "conv3x3_wgrad": 0,
-            "branch_chain_train": 0}
+    forwards = 2 if p.flip_test else 1
+    fwd = fwd_launches(p.model, p.dtype, forwards)
+    want = expected(device, decode_heatmaps=chunks,
+                    branch_chain_eval=per_chunk * chunks,
+                    **{k: v * chunks for k, v in fwd.items()})
     if counts != want:
         raise AssertionError(f"{phase}: launches {counts} for {chunks} "
                              f"chunks, want {want}")
     log(phase, f"requests {requests}: shapes and finite ok, "
         f"decode_kernel_launches {counts['decode_heatmaps']} == chunks "
         f"{chunks}" + (f", P5e launches {counts['branch_chain_eval']} "
-                       f"({per_chunk} per chunk)" if per_chunk else ""))
+                       f"({per_chunk} per chunk)" if per_chunk else "")
+        + "".join(f", {k} launches {counts[k]} ({v} per chunk)"
+                  for k, v in fwd.items() if v))
     check_kernel_path_on_chunk(phase, p, *max(data, key=lambda d: len(d[0])))
     check_bf16_flow(phase, p, data[0][0])
 
@@ -895,11 +977,8 @@ def phase_fpd_train(device, totals, label):
             losses.append(step(state, batch)[1])
 
     _, counts = main_path_run(totals, run)
-    want = {"conv3x3_wgrad": on_card(device, P4_PER_STEP * TRAIN_STEPS),
-            "decode_heatmaps": on_card(device,
-                                       K1_PER_TRAIN_STEP * TRAIN_STEPS),
-            "pairwise_oks": 0, "greedy_nms_mask": 0,
-            "branch_chain_eval": 0, "branch_chain_train": 0}
+    want = expected(device, conv3x3_wgrad=P4_PER_STEP * TRAIN_STEPS,
+                    decode_heatmaps=K1_PER_TRAIN_STEP * TRAIN_STEPS)
     if counts != want or len(shapes) != P4_PER_STEP:
         raise AssertionError(f"train: launches {counts} for {TRAIN_STEPS} "
                              f"steps, want {want}; {len(shapes)} convs")
@@ -1302,10 +1381,9 @@ def phase_hrnet_fpd_train(device, totals, label):
     per_step = {"branch_chain_eval": HRNET_CHAINS,
                 "branch_chain_train": HRNET_CHAINS,
                 "conv3x3_wgrad": HRNET_P4_PER_STEP,
-                "decode_heatmaps": K1_PER_TRAIN_STEP,
-                "pairwise_oks": 0, "greedy_nms_mask": 0}
-    want = {k: on_card(device, v * HRNET_TRAIN_STEPS)
-            for k, v in per_step.items()}
+                "decode_heatmaps": K1_PER_TRAIN_STEP}
+    want = expected(device, **{k: v * HRNET_TRAIN_STEPS
+                               for k, v in per_step.items()})
     if counts != want:
         raise AssertionError(f"hrnet-train: launches {counts} for "
                              f"{HRNET_TRAIN_STEPS} steps, want {want}")
@@ -1480,20 +1558,21 @@ def coco_eval_batches(cfg, gt, device):
     return batches, boxes, paths
 
 
-def phase_eval_coco(model, device, out_dir, totals) -> None:
-    """Validation of the trained W32: make_eval_step (flip test, a padded
-    last batch) on crops of the synthetic COCO set, then COCO AP through
-    make_evaluate_fn (rescore, OKS-NMS on the card)."""
+def phase_eval_coco(phase, cfg, model, device, out_dir, totals) -> None:
+    """Validation of a trained COCO model (``cfg``: W32 or RN-50):
+    make_eval_step (flip test, a padded last batch) on crops of the
+    synthetic COCO set, then COCO AP through make_evaluate_fn (rescore,
+    OKS-NMS on the card)."""
     import torch
     from fhpe_tpu_torch.cli.common import make_evaluate_fn
     from fhpe_tpu_torch.data import COCO_FLIP_PAIRS
     from fhpe_tpu_torch.data.coco_synthetic import (synthetic_coco_gt,
                                                     write_coco_gt)
     from fhpe_tpu_torch.geometry.flip import flip_pair_permutation
-    from fhpe_tpu_torch.tools.train_parity import hrnet_fpd_cfgs
     from fhpe_tpu_torch.train import make_batch_preprocessor, make_eval_step
+    from fhpe_tpu_torch.utils.dtype import compute_dtype
 
-    cfg, _ = hrnet_fpd_cfgs()
+    cfg = cfg.clone()
     cfg.defrost()
     cfg.DATASET.ROOT = str(out_dir)
     cfg.DATASET.TEST_SET = COCO_SET
@@ -1517,28 +1596,27 @@ def phase_eval_coco(model, device, out_dir, totals) -> None:
         return outs, nv
 
     (outs, nv), counts = main_path_run(totals, run)
-    want = {"branch_chain_eval": on_card(device, 2 * HRNET_CHAINS
-                                         * len(batches)),
-            "decode_heatmaps": on_card(device,
-                                       K1_PER_EVAL_BATCH * len(batches)),
-            "pairwise_oks": on_card(device, images),
-            "greedy_nms_mask": on_card(device, images),
-            "conv3x3_wgrad": 0, "branch_chain_train": 0}
+    n = len(batches)
+    per_batch = {"branch_chain_eval": 2 * len(fused_chains(model)),
+                 "decode_heatmaps": K1_PER_EVAL_BATCH,
+                 **fwd_launches(model, compute_dtype(cfg, device), 2)}
+    want = expected(device, pairwise_oks=images, greedy_nms_mask=images,
+                    **{k: v * n for k, v in per_batch.items()})
     if counts != want:
-        raise AssertionError(f"coco-eval: launches {counts}, want {want}")
+        raise AssertionError(f"{phase}: launches {counts}, want {want}")
     losses = [o["loss"].item() for o in outs]
     if len(nv) != 10 or not all(math.isfinite(v) for v in nv.values()) \
             or not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"coco-eval: stats {dict(nv)}, losses {losses}")
+        raise AssertionError(f"{phase}: stats {dict(nv)}, losses {losses}")
     hits = int(sum(o["hits"] for o in outs).sum())
     valids = int(sum(o["valids"] for o in outs).sum())
-    log("coco-eval", f"{len(batches)} batches of {len(batches[0]['valid'])} "
-        f"({people} people, {images} images, flip test on): P5e launches "
-        f"{counts['branch_chain_eval']} ({2 * HRNET_CHAINS} per batch), "
-        f"decode {counts['decode_heatmaps']}, OKS/greedy "
-        f"{counts['pairwise_oks']}/{counts['greedy_nms_mask']}; loss "
-        f"{np.mean(losses):.6f}, PCK hits/valids {hits}/{valids}; 10 stats "
-        f"finite: " + ", ".join(f"{k} {v:.4f}" for k, v in nv.items()))
+    log(phase, f"{n} batches of {len(batches[0]['valid'])} ({people} "
+        f"people, {images} images, flip test on): launches per batch "
+        + ", ".join(f"{k} {v}" for k, v in per_batch.items() if v)
+        + f"; OKS/greedy {counts['pairwise_oks']}/"
+        f"{counts['greedy_nms_mask']}; loss {np.mean(losses):.6f}, PCK "
+        f"hits/valids {hits}/{valids}; 10 stats finite: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in nv.items()))
 
 
 def mpii_eval_batches(cfg, gt, device):
@@ -1605,10 +1683,7 @@ def phase_eval_mpii(model, device, out_dir, totals) -> None:
 
     outs, counts = main_path_run(totals, lambda: [step(model, b)
                                                   for b in batches])
-    want = {"decode_heatmaps": on_card(device,
-                                       K1_PER_EVAL_BATCH * len(batches)),
-            "conv3x3_wgrad": 0, "pairwise_oks": 0, "greedy_nms_mask": 0,
-            "branch_chain_eval": 0, "branch_chain_train": 0}
+    want = expected(device, decode_heatmaps=K1_PER_EVAL_BATCH * len(batches))
     if counts != want:
         raise AssertionError(f"eval: launches {counts}, want {want}")
     preds = torch.cat([torch.cat([o["preds"], o["maxvals"][..., None]], -1)
@@ -1636,6 +1711,325 @@ def phase_eval_mpii(model, device, out_dir, totals) -> None:
         + ", ".join(f"{k} {float(v):.2f}" for k, v in nv.items()))
 
 
+# -- PoseResNet-50: conv3x3_fwd ----------------------------------------------
+
+def conv_bound(shape, out_bytes: int) -> dict:
+    """Least time for one bf16-input conv3x3_fwd call: 18 C^2 operations
+    per pixel at the bf16 peak, or its bytes: x and the weights read once
+    (bf16), y written once (``out_bytes`` per value)."""
+    b, c, h, w = shape
+    n = b * c * h * w
+    return bound(2 * n + 2 * 9 * c * c + out_bytes * n,
+                 18 * c * c * b * h * w, BF16_OPS_PER_S)
+
+
+def phase_conv_kernel(device) -> dict:
+    """conv3x3_fwd against its plain version on planted cases at the RN-50
+    shapes, the probes' shape and edge cases, in its three modes, TF32 off;
+    two runs bit-equal; then device times of the kernel, its plain version
+    and ``F.conv2d`` at the RN-50 and probe shapes."""
+    import torch
+    import torch.nn.functional as F
+    from fhpe_tpu_torch.ops.conv3x3_fwd import conv3x3_fwd, conv3x3_fwd_plain
+    from fhpe_tpu_torch.ops.conv3x3_fwd_cases import (EDGE_SHAPES,
+                                                      PROBE_SHAPE,
+                                                      RN50_SHAPES, bf16_ulp,
+                                                      conv_cases,
+                                                      within_bf16_ulp)
+    from fhpe_tpu_torch.tools.train_parity import tf32_off
+    from fhpe_tpu_torch.utils.profiling import device_ms
+
+    modes = {"bf16 -> bf16": (torch.bfloat16, None),
+             "bf16 -> f32": (torch.bfloat16, torch.float32),
+             "f32 -> f32": (torch.float32, None)}
+    # per mode: max|diff| / max|y|, max|diff|, share beyond one bf16 ulp
+    worst = {m: [0.0, 0.0, 0.0] for m in modes}
+    bad, checked = [], 0
+    with tf32_off():
+        for shape in RN50_SHAPES + [PROBE_SHAPE] + EDGE_SHAPES:
+            for name, xn, wn in conv_cases(*shape, seed=sum(shape)):
+                for mode, (din, dout) in modes.items():
+                    x = torch.from_numpy(xn).to(device, din)
+                    w = torch.from_numpy(wn).to(device, din)
+                    k1, k2 = (conv3x3_fwd(x, w, out_dtype=dout)
+                              for _ in range(2))
+                    ref = conv3x3_fwd_plain(x, w, dout)
+                    sync(device)
+                    scale = ref.float().abs().max().item()
+                    diff = (k1.float() - ref.float()).abs()
+                    err = diff.max().item()
+                    slack = CONV_F32_REL_TOL * scale
+                    if k1.dtype == torch.bfloat16:
+                        ok = within_bf16_ulp(k1, ref, slack)
+                        beyond = (diff > bf16_ulp(ref)).float().mean().item()
+                    else:
+                        ok, beyond = err <= slack, 0.0
+                    if name == "zero weights":
+                        ok = ok and not bool(k1.any())
+                    same = torch.equal(k1, k2)
+                    acc = worst[mode]
+                    acc[:] = [max(acc[0], err / scale if scale else 0.0),
+                              max(acc[1], err), max(acc[2], beyond)]
+                    if not (ok and same):
+                        bad.append((shape, name, mode, err, scale, same))
+                    checked += 1
+    for mode, (rel, err, beyond) in worst.items():
+        log("conv", f"conv3x3_fwd {mode} against plain: max|diff| "
+            f"{err:.3g} ({rel:.3g} of max|y|; bar {CONV_F32_REL_TOL:g}"
+            + (f" over one bf16 ulp; at most {beyond:.2g} of a case's "
+               f"values beyond one ulp" if mode == "bf16 -> bf16" else "")
+            + ")")
+    if bad:
+        raise AssertionError(f"conv3x3_fwd beyond its bars or not bit-equal"
+                             f" run to run: {bad[:6]}")
+    log("conv", f"conv3x3_fwd: {checked} cases within the bars, two runs "
+        f"bit-equal on every one")
+
+    out = {key: {"max_abs_err": max(worst[m][1] for m in mds), "ms": None,
+                 "plain_ms": None, "library_ms": None,
+                 **conv_bound(PROBE_SHAPE, nbytes)}
+           for key, mds, nbytes in (
+               ("conv3x3_fwd", ["bf16 -> bf16"], 2),
+               ("conv3x3_fwd_f32", ["bf16 -> f32", "f32 -> f32"], 4))}
+    if device.type != "cuda":
+        return out
+    for shape in RN50_SHAPES + [PROBE_SHAPE]:
+        _, xn, wn = conv_cases(*shape, seed=1)[0]
+        x, w = (torch.from_numpy(a).to(device, torch.bfloat16)
+                for a in (xn, wn))
+        # F.conv2d on the bf16 values as float32: with cuDNN's default TF32
+        # a product of two bf16 values is exact, so it computes the
+        # float32-out function
+        x32, w32 = x.float(), w.float()
+        kinds = [("conv3x3_fwd", None, 2)]
+        if shape == PROBE_SHAPE:
+            kinds.append(("conv3x3_fwd_f32", torch.float32, 4))
+        b, c, h, wd = shape
+        flop = 18 * c * c * b * h * wd
+        for key, dout, nbytes in kinds:
+            def kernel():
+                return conv3x3_fwd(x, w, out_dtype=dout)
+
+            def plain():
+                return conv3x3_fwd_plain(x, w, dout)
+
+            def library():
+                if dout is None:
+                    return F.conv2d(x, w, padding=1)
+                return F.conv2d(x32, w32, padding=1)
+
+            dp1, dk1, dk2, dp2 = (device_ms(f, 20) for f in
+                                  (plain, kernel, kernel, plain))
+            dl = device_ms(library, 20)
+            lim = conv_bound(shape, nbytes)
+            if shape == PROBE_SHAPE:
+                out[key].update(ms=(dk1 + dk2) / 2, plain_ms=(dp1 + dp2) / 2,
+                                library_ms=dl)
+            log("conv", f"{key} {shape} bf16 -> "
+                f"{'bf16' if dout is None else 'f32'}: device time per call "
+                f"(profiler) kernel {dk1:.4f}/{dk2:.4f} ms "
+                f"({flop / ((dk1 + dk2) / 2) / 1e9:.1f} TFLOP/s), plain "
+                f"{dp1:.4f}/{dp2:.4f} ms, F.conv2d (cuDNN) {dl:.4f} ms; "
+                f"bound {lim['bound_ms']:.5f} ms ({lim['bound_by']})")
+    return out
+
+
+def phase_rn50_f32_serve_parity(device, totals) -> None:
+    """Phase 6 on RN-50, inside a main-path window: its float32 forwards
+    on the card take the float32-out kernel."""
+    import torch
+    cfg = serve_cfg(RN50_YAML, "float32")
+    model = he_model(cfg, 300)
+    _, counts = main_path_run(totals, lambda: phase_f32_parity(
+        "rn50-f32-parity", cfg, model, device, seed=300))
+    # merged_heatmaps and one predict_crops chunk: two flip-test forward
+    # pairs on the card, one decode
+    want = expected(device, decode_heatmaps=1,
+                    **fwd_launches(model, torch.float32, 4))
+    if counts != want:
+        raise AssertionError(f"rn50-f32-parity: launches {counts}, want "
+                             f"{want}")
+    log("rn50-f32-parity", f"launches {counts['conv3x3_fwd_f32']} "
+        f"conv3x3_fwd_f32 (float32 out), {counts['decode_heatmaps']} decode")
+
+
+def phase_rn50_train(device, totals, label):
+    """The RN-50 plain train step at full width (bf16, batch 32): launches
+    per step, finite and falling losses, warm images/s with the route and
+    without (cuDNN forwards), a profile of each, and conv3x3_fwd on one
+    step's conv shapes against cuDNN's forward.  Returns the state."""
+    import torch
+    import torch.nn.functional as F
+    from fhpe_tpu_torch.models.common import fwd_kernel_convs
+    from fhpe_tpu_torch.ops.conv3x3_fwd import conv3x3_fwd
+    from fhpe_tpu_torch.tools.profile_serve import kernel_group
+    from fhpe_tpu_torch.tools.train_parity import rn50_cfg, train_batch
+    from fhpe_tpu_torch.train import (create_train_state,
+                                      make_batch_preprocessor,
+                                      make_train_step)
+    from fhpe_tpu_torch.utils.profiling import (busy_ms, device_events,
+                                                device_ms)
+
+    cfg = rn50_cfg()
+    state = create_train_state(cfg, he_model(cfg, 300), device=device)
+    step = make_train_step(cfg, prepare=make_batch_preprocessor(cfg))
+    batch = train_batch(cfg, TRAIN_BATCH, seed=27, device=device)
+    routed = fwd_kernel_convs(state.model)
+    shapes = []
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out: shapes.append(tuple(inp[0].shape)))
+        for m in routed]
+    t0 = time.perf_counter()
+    step(state, batch)      # cuDNN algorithm choice; the kernels load
+    sync(device)
+    for hk in hooks:
+        hk.remove()
+    if not len(routed) == len(shapes) == RN50_ROUTED:
+        raise AssertionError(f"rn50-train: {len(routed)} routed convs, "
+                             f"{len(shapes)} ran")
+    log("rn50-train", f"first step {time.perf_counter() - t0:.2f} s "
+        f"({RN50_YAML.name}, bf16, batch {TRAIN_BATCH}); {len(routed)} "
+        f"3x3 stride-1 convs on conv3x3_fwd")
+
+    losses = []
+
+    def run():
+        for _ in range(RN50_TRAIN_STEPS):
+            losses.append(step(state, batch)[1])
+
+    _, counts = main_path_run(totals, run)
+    per_step = {"conv3x3_fwd": RN50_ROUTED, "conv3x3_wgrad": RN50_ROUTED,
+                "decode_heatmaps": K1_PER_TRAIN_STEP}
+    want = expected(device, **{k: v * RN50_TRAIN_STEPS
+                               for k, v in per_step.items()})
+    if counts != want:
+        raise AssertionError(f"rn50-train: launches {counts} for "
+                             f"{RN50_TRAIN_STEPS} steps, want {want}")
+    first = check_finite("rn50-train", losses[0], ("loss",))
+    last = check_finite("rn50-train", losses[-1], ("loss",))
+    if not last["loss"] < first["loss"]:
+        raise AssertionError(f"rn50-train: loss {first['loss']} -> "
+                             f"{last['loss']} over {RN50_TRAIN_STEPS} steps")
+    log("rn50-train", f"{RN50_TRAIN_STEPS} steps on one batch: loss "
+        f"{first['loss']:.6f} -> {last['loss']:.6f}; launches per step: "
+        + ", ".join(f"{k} {counts[k] / RN50_TRAIN_STEPS:g}"
+                    for k in per_step))
+
+    def route(on):
+        for m in routed:
+            m.fwd_kernel = on
+
+    def rate(on):
+        route(on)
+        sync(device)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(state, batch)
+        sync(device)
+        return 3 * TRAIN_BATCH / (time.perf_counter() - t0)
+
+    rates = {True: [], False: []}
+    for on in (True, False, False, True, True, False):
+        rates[on].append(rate(on))
+    route(True)
+    log("rn50-train", f"warm RN-50 train step {sorted(rates[True])[1]:.1f} "
+        f"images/s with conv3x3_fwd, {sorted(rates[False])[1]:.1f} with "
+        f"cuDNN forwards (medians of 3 x 3 steps in turns, batch "
+        f"{TRAIN_BATCH}, bf16; forward, backward, Adam) on {label}")
+    if device.type != "cuda":
+        return state
+
+    walls = []
+
+    def profiled():
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step(state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    for on in (True, False):
+        route(on)
+        walls.clear()
+        events = device_events(profiled)
+        busy = busy_ms(events)
+        groups = Counter()
+        for e in events:
+            groups[kernel_group(e["name"]) if e["cat"] == "kernel"
+                   else e["cat"]] += float(e["dur"]) / 1e3 / 2
+        log("rn50-train", f"2 steps under the profiler, "
+            f"{'with conv3x3_fwd' if on else 'cuDNN forwards'}: "
+            f"{walls[0]:.1f} ms, device busy {busy:.1f} ms (idle share "
+            f"{1 - busy / walls[0]:.3f}); {len(events) / 2:.1f} device ops "
+            f"per step; ms per step by group: "
+            + ", ".join(f"{g} {v:.2f}" for g, v in groups.most_common()))
+    route(True)
+
+    # the kernel on one step's 13 conv inputs against cuDNN's forward on
+    # the same shapes (random ReLU outputs, He-scale weights, bf16)
+    gen = torch.Generator(device=device).manual_seed(5)
+    inputs = [(torch.randn(s, generator=gen, device=device).relu()
+               .to(torch.bfloat16),
+               (torch.randn((s[1], s[1], 3, 3), generator=gen, device=device)
+                * math.sqrt(2.0 / (9 * s[1]))).to(torch.bfloat16))
+              for s in shapes]
+
+    def kernel():
+        for x, w in inputs:
+            conv3x3_fwd(x, w)
+
+    def library():
+        for x, w in inputs:
+            F.conv2d(x, w, padding=1)
+
+    k1, l1, l2, k2 = (device_ms(f, 5) for f in (kernel, library, library,
+                                                kernel))
+    flop = sum(18 * s[1] ** 2 * s[0] * s[2] * s[3] for s in shapes)
+    log("rn50-train", f"one step's {len(shapes)} conv3x3_fwd shapes "
+        f"({flop / 1e9:.1f} GFLOP): kernel {k1:.3f}/{k2:.3f} ms, cuDNN "
+        f"forward {l1:.3f}/{l2:.3f} ms device time; bound "
+        f"{flop / BF16_OPS_PER_S * 1e3:.4f} ms at the bf16 peak")
+    return state
+
+
+def phase_rn50_f32_parity(device) -> None:
+    """One float32 RN-50 train step at full width, batch 2, from the same
+    weights: on the card (TF32 off) against the same port on the CPU, and
+    on the card with the conv3x3_fwd route against the card with cuDNN's
+    forwards in its place."""
+    from fhpe_tpu_torch.tools.train_parity import (describe, one_train_step,
+                                                   rn50_cfg, step_diff,
+                                                   tf32_off, train_batch)
+
+    cfg = rn50_cfg("float32")
+    model = he_model(cfg, 300)
+    batch = train_batch(cfg, 2, seed=9, device="cpu")
+    with tf32_off():
+        card = one_train_step(cfg, model, batch, device)
+        cpu = one_train_step(cfg, model, batch, "cpu")
+        unrouted = (one_train_step(cfg, model, batch, device,
+                                   fwd_kernel=False)
+                    if device.type == "cuda" else card)
+    for run in (card, cpu, unrouted):
+        check_finite("rn50-f32", run[1], ("loss",))
+    bad = []
+    for what, (a, b), bars in (
+            ("card vs CPU", (card, cpu), HRNET_PARITY_BARS),
+            ("conv3x3_fwd vs cuDNN forwards on the card", (card, unrouted),
+             RN50_ROUTE_STEP_BARS)):
+        diff = step_diff(a, b)
+        loss, stats, moments, off, live = diff
+        loss_tol, stats_tol, l2_tol, worst_tol, off_tol = bars
+        if (loss > loss_tol or stats > stats_tol or off > off_tol * live
+                or any(l2 > l2_tol or worst > worst_tol
+                       for l2, worst in moments.values())):
+            bad.append(what)
+        log("rn50-f32", f"{what} (one RN-50 train step, float32, TF32 off, "
+            f"batch 2): {describe(*diff)}")
+    if bad:
+        raise AssertionError(f"rn50-f32: beyond the bars: {bad}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1645,6 +2039,7 @@ def main() -> int:
     from fhpe_tpu_torch.data.coco_synthetic import (synthetic_coco_gt,
                                                     write_coco_gt)
     from fhpe_tpu_torch.ops import _build
+    from fhpe_tpu_torch.tools.train_parity import hrnet_fpd_cfgs, rn50_cfg
 
     device = torch.device("cuda", 0)
     label = card_label()
@@ -1661,7 +2056,8 @@ def main() -> int:
     stats = {"decode_heatmaps": phase_kernel_vs_plain(device),
              **phase_nms_kernels(device),
              "conv3x3_wgrad": phase_wgrad_kernel(device),
-             **phase_chain_kernels(device)}
+             **phase_chain_kernels(device),
+             **phase_conv_kernel(device)}
     phase_chain_grad(device)
     totals = Counter()
 
@@ -1698,7 +2094,18 @@ def main() -> int:
     state = phase_hrnet_fpd_train(device, totals, label)
     phase_hrnet_f32_parity(device)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
-        phase_eval_coco(state.model, device, Path(tmp), totals)
+        phase_eval_coco("coco-eval", hrnet_fpd_cfgs()[0], state.model,
+                        device, Path(tmp), totals)
+
+    rn50 = serve_cfg(RN50_YAML)
+    phase_serve("rn50", rn50, he_model(rn50, 300), device, [1, 32, 45],
+                seed=300, totals=totals, label=label)
+    phase_rn50_f32_serve_parity(device, totals)
+    state = phase_rn50_train(device, totals, label)
+    phase_rn50_f32_parity(device)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        phase_eval_coco("rn50-eval", rn50_cfg(), state.model, device,
+                        Path(tmp), totals)
 
     for name in KERNELS:
         if totals[name] <= 0:

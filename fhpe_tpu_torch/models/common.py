@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.conv3x3_fwd import conv3x3_fwd
 from ..ops.conv_wgrad import conv3x3_wgrad
 from ..utils.dtype import autocast
 
@@ -26,14 +27,17 @@ BN_EPS = 1e-5
 
 class _Conv3x3WgradFn(torch.autograd.Function):
     """3x3 stride-1 pad-1 conv whose filter gradient is the P4 port
-    (``ops/conv_wgrad.py``): forward and input gradient by cuDNN, bias
-    gradient a sum.  Takes the tensors in the dtype the conv computes in
-    and returns each gradient in its input's dtype."""
+    (``ops/conv_wgrad.py``): forward by cuDNN, or by the conv3x3_fwd
+    kernel (``ops/conv3x3_fwd.py``) when ``fwd_kernel``; input gradient by
+    cuDNN, bias gradient a sum.  Takes the tensors in the dtype the conv
+    computes in and returns each gradient in its input's dtype."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias):
+    def forward(ctx, x, weight, bias, fwd_kernel):
         ctx.save_for_backward(x, weight)
         ctx.has_bias = bias is not None
+        if fwd_kernel:
+            return conv3x3_fwd(x, weight, bias)
         with torch.autocast(x.device.type, enabled=False):
             return F.conv2d(x, weight, bias, 1, 1)
 
@@ -51,24 +55,34 @@ class _Conv3x3WgradFn(torch.autograd.Function):
                 dw = conv3x3_wgrad(x.contiguous(), dy).to(weight.dtype)
             if ctx.has_bias and ctx.needs_input_grad[2]:
                 db = dy.sum((0, 2, 3))
-        return dx, dw, db
+        return dx, dw, db, None
 
 
 class Conv3x3(nn.Conv2d):
     """``nn.Conv2d(c, c, 3, padding=1)`` whose training backward takes the
     filter gradient from the P4 port (``ops/conv_wgrad.py``).
 
-    Under ``no_grad`` / ``inference_mode`` it is the plain conv.  With
-    grad on, it hands the Function the copies of x, weight and bias that
-    autocast would hand ``F.conv2d`` (bf16 under bf16 autocast), as
-    ``fhpe_tpu``'s flax ``Conv`` casts its float32 kernel inside the
-    forward: the weight gradient is then rounded to the copy's dtype and
-    the cast's backward lifts it to float32, as both frameworks do.
-    Same parameters and ``state_dict`` keys as ``nn.Conv2d``.
+    With ``fwd_kernel`` (bias-free only) its forward is the conv3x3_fwd
+    kernel (``ops/conv3x3_fwd.py``), with grad on and off; else, under
+    ``no_grad`` / ``inference_mode``, it is the plain conv.  Otherwise it
+    hands the Function the copies of x, weight and bias that autocast
+    would hand ``F.conv2d`` (bf16 under bf16 autocast), as ``fhpe_tpu``'s
+    flax ``Conv`` casts its float32 kernel inside the forward: the weight
+    gradient is then rounded to the copy's dtype and the cast's backward
+    lifts it to float32, as both frameworks do.  The kernel route casts
+    the same way by hand (autocast never reaches a custom kernel) and
+    hands the kernel contiguous NCHW copies.  Same parameters and
+    ``state_dict`` keys as ``nn.Conv2d``.
     """
 
+    def __init__(self, *args, fwd_kernel: bool = False, **kwargs):
+        super().__init__(*args, **kwargs)
+        if fwd_kernel and self.bias is not None:
+            raise ValueError("the conv3x3_fwd kernel takes no bias")
+        self.fwd_kernel = fwd_kernel
+
     def forward(self, x):
-        if not torch.is_grad_enabled():
+        if not (self.fwd_kernel or torch.is_grad_enabled()):
             return super().forward(x)
         w, b = self.weight, self.bias
         dev = x.device.type
@@ -76,15 +90,29 @@ class Conv3x3(nn.Conv2d):
             dt = torch.get_autocast_dtype(dev)
             x, w = x.to(dt), w.to(dt)
             b = None if b is None else b.to(dt)
-        return _Conv3x3WgradFn.apply(x, w, b)
+        if self.fwd_kernel:
+            x, w = x.contiguous(), w.contiguous()
+            if not torch.is_grad_enabled():
+                return conv3x3_fwd(x, w)
+        return _Conv3x3WgradFn.apply(x, w, b, self.fwd_kernel)
+
+
+def fwd_kernel_convs(model: nn.Module):
+    """The :class:`Conv3x3` modules of ``model`` whose forward runs on the
+    conv3x3_fwd kernel (13 in PoseResNet-50, none in the hourglass or
+    HRNet); clearing their ``fwd_kernel`` sends them to cuDNN."""
+    return [m for m in model.modules()
+            if isinstance(m, Conv3x3) and m.fwd_kernel]
 
 
 def conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1,
-         bias: bool = True) -> nn.Conv2d:
+         bias: bool = True, fwd_kernel: bool = False) -> nn.Conv2d:
     """2D conv with torch-style symmetric padding ``(kernel - 1) // 2``;
-    a 3x3 stride-1 conv with ``in_ch == out_ch`` is a :class:`Conv3x3`."""
+    a 3x3 stride-1 conv with ``in_ch == out_ch`` is a :class:`Conv3x3`
+    (its forward on the conv3x3_fwd kernel if ``fwd_kernel``)."""
     if kernel == 3 and stride == 1 and in_ch == out_ch:
-        return Conv3x3(in_ch, out_ch, 3, padding=1, bias=bias)
+        return Conv3x3(in_ch, out_ch, 3, padding=1, bias=bias,
+                       fwd_kernel=fwd_kernel)
     return nn.Conv2d(in_ch, out_ch, kernel, stride=stride,
                      padding=(kernel - 1) // 2, bias=bias)
 
@@ -129,16 +157,19 @@ def _downsample(inplanes: int, outplanes: int, stride: int) -> nn.Sequential:
 
 class BasicBlock(nn.Module):
     """Post-activation residual block, expansion 1, bias-free convs
-    (reference ``pose_hrnet.py`` ``BasicBlock``)."""
+    (reference ``pose_hrnet.py`` ``BasicBlock``); ``fwd_kernel`` routes
+    its 3x3 stride-1 C -> C convs' forwards to the conv3x3_fwd kernel."""
 
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, fwd_kernel: bool = False):
         super().__init__()
-        self.conv1 = conv(inplanes, planes, 3, stride, bias=False)
+        self.conv1 = conv(inplanes, planes, 3, stride, bias=False,
+                          fwd_kernel=fwd_kernel)
         self.bn1 = batch_norm(planes)
-        self.conv2 = conv(planes, planes, 3, bias=False)
+        self.conv2 = conv(planes, planes, 3, bias=False,
+                          fwd_kernel=fwd_kernel)
         self.bn2 = batch_norm(planes)
         self.downsample = (_downsample(inplanes, planes, stride)
                            if downsample else None)
@@ -152,16 +183,18 @@ class BasicBlock(nn.Module):
 
 class Bottleneck(nn.Module):
     """Post-activation bottleneck, expansion 4, bias-free convs
-    (reference ``pose_hrnet.py`` ``Bottleneck``)."""
+    (reference ``pose_hrnet.py`` ``Bottleneck``); ``fwd_kernel`` routes
+    a stride-1 ``conv2``'s forward to the conv3x3_fwd kernel."""
 
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, fwd_kernel: bool = False):
         super().__init__()
         self.conv1 = conv(inplanes, planes, 1, bias=False)
         self.bn1 = batch_norm(planes)
-        self.conv2 = conv(planes, planes, 3, stride, bias=False)
+        self.conv2 = conv(planes, planes, 3, stride, bias=False,
+                          fwd_kernel=fwd_kernel)
         self.bn2 = batch_norm(planes)
         self.conv3 = conv(planes, planes * 4, 1, bias=False)
         self.bn3 = batch_norm(planes * 4)

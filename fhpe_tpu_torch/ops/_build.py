@@ -4,8 +4,9 @@ The sources have a plain C interface, so ``nvcc`` compiles them in
 seconds (one ``nvcc -c`` per source, all started together) and links them
 into one shared library, loaded with ``ctypes``.  The library
 lands in ``build/fhpe_tpu_torch/<hash>/libfhpe_kernels.so`` beside the
-package, keyed by a hash of the sources and the compiler flags, so a
-changed source is rebuilt and an unchanged one is loaded as it is.
+package, keyed by a hash of the sources, the headers they share
+(``csrc/*.cuh``) and the compiler flags, so a changed source or header is
+rebuilt and an unchanged one is loaded as it is.
 Nothing is built at import: the first call of :func:`load_library` builds.
 """
 
@@ -31,6 +32,10 @@ def _sources():
     return sorted(_CSRC.glob("*.cu"))
 
 
+def _headers():
+    return sorted(_CSRC.glob("*.cuh"))
+
+
 def _nvcc() -> str:
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "nvcc")
@@ -44,7 +49,7 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -116,6 +121,8 @@ def load_library() -> ctypes.CDLL:
                                             ci, ci, ci, ci, ci, pp, pp, pp,
                                             ctypes.c_float, vp]
     lib.fhpe_branch_chain_train.restype = ci
+    lib.fhpe_conv3x3_fwd.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+    lib.fhpe_conv3x3_fwd.restype = ci
     lib.fhpe_cuda_error_string.argtypes = [ci]
     lib.fhpe_cuda_error_string.restype = ctypes.c_char_p
     return lib

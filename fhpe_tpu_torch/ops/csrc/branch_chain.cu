@@ -37,83 +37,25 @@
 // HRNet's branches run at C = 32 ... 384.
 //
 // Design (simple and right first; TMA, wgmma and one persistent launch for
-// the whole chain are later work): an implicit GEMM per conv.  M = C output
-// channels, N = B*H*W pixels, K = 9C (input channel, tap), in OIHW order so
-// the weight rows are read as they lie.  A block of 128 threads owns a
-// 64 x 64 output tile and walks K in steps of 32: the weight slice (A) and
-// the shifted input taps (B, gathered with the zero border in the loads,
-// im2col on the fly: neighbouring threads read neighbouring pixels) are
-// staged in shared memory, the next step's loads in flight in registers
-// while the current step computes.  bfloat16 runs on the tensor cores
-// (wmma 16x16x16, float32 accumulate, each warp a 32 x 32 sub-tile);
-// float32 on the CUDA cores (each thread a 4 x 8 sub-tile, fmaf).  The
+// the whole chain are later work): an implicit GEMM per conv, the core in
+// conv3x3_core.cuh (64 x 64 output tiles, K = 9C in steps of 32, bfloat16
+// on the tensor cores through wmma, float32 on the CUDA cores).  The
 // accumulators go through shared memory to the epilogue, which rounds,
-// normalizes and writes coalesced along pixels.  Ragged tiles in M, N and
-// K are masked, so any B, C, H and W run.
+// normalizes and writes coalesced along pixels.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+
+#include "conv3x3_core.cuh"
 
 namespace {
 
-constexpr int kBM = 64;        // output channels per tile
-constexpr int kBN = 64;        // pixels per tile
-constexpr int kBK = 32;        // K per shared-memory step
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kLdc = kBN + 4;  // row stride of the float32 epilogue tile
-constexpr int kALoads = kBM * kBK / kThreads;  // 16
-constexpr int kBLoads = kBK * kBN / kThreads;  // 16
+using namespace conv3x3;
+
 constexpr int kReduceThreads = 256;
 constexpr int kEltThreads = 256;
 
 enum Epilogue { kRawStats = 0, kBnRelu = 1, kBnAddRelu = 2 };
-
-// Shared-memory row strides (elements): wmma wants multiples of 8 for
-// 16-bit types; the float32 path pads against bank conflicts.
-template <typename T>
-struct Tile {
-  static constexpr int lda = kBK + 8, ldb = kBN + 8;
-};
-template <>
-struct Tile<float> {
-  static constexpr int lda = kBK + 1, ldb = kBN + 4;
-};
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_f32(from_f32<T>(v));
-}
-__device__ __forceinline__ float relu(float v) { return v < 0.f ? 0.f : v; }
-
-// (v - mean) * inv * gamma + beta, in the plain version's order, no FMA.
-__device__ __forceinline__ float bn(float v, float mean, float inv, float g,
-                                    float b) {
-  return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v, mean), inv), g), b);
-}
-
-// Per-channel BatchNorm parameters: `inv` if given, else 1/sqrt(var + eps).
-struct Bn {
-  const float* mean;
-  const float* var;
-  const float* inv;
-  const float* gamma;
-  const float* beta;
-};
 
 template <typename T>
 struct ConvArgs {
@@ -129,97 +71,6 @@ struct ConvArgs {
   int b, c, h, w;
 };
 
-// The mainloop's multiply-accumulate: tensor cores for bfloat16 ...
-template <typename T>
-struct Accum {
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>
-      acc[2][2];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) nvcuda::wmma::fill_fragment(acc[i][j], 0.f);
-  }
-
-  __device__ void step(const T* as, const T* bs, int tid) {
-    using namespace nvcuda;
-    constexpr int lda = Tile<T>::lda, ldb = Tile<T>::ldb;
-    const int warp = tid / 32, wm = warp / 2, wn = warp % 2;
-#pragma unroll
-    for (int ks = 0; ks < kBK; ks += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], as + (wm * 32 + i * 16) * lda + ks, lda);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], bs + ks * ldb + wn * 32 + j * 16, ldb);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-  }
-
-  __device__ void store(float* cs, int tid) {
-    const int warp = tid / 32, wm = warp / 2, wn = warp % 2;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        nvcuda::wmma::store_matrix_sync(
-            cs + (wm * 32 + i * 16) * kLdc + wn * 32 + j * 16, acc[i][j],
-            kLdc, nvcuda::wmma::mem_row_major);
-  }
-};
-
-// ... and the CUDA cores for float32: thread (tx, ty) owns rows ty + 16q,
-// columns tx + 8p of the tile.
-template <>
-struct Accum<float> {
-  float acc[4][8];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-#pragma unroll
-      for (int p = 0; p < 8; ++p) acc[q][p] = 0.f;
-  }
-
-  __device__ void step(const float* as, const float* bs, int tid) {
-    constexpr int lda = Tile<float>::lda, ldb = Tile<float>::ldb;
-    const int tx = tid % 8, ty = tid / 8;
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float av[4], bv[8];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) av[q] = as[(ty + 16 * q) * lda + kk];
-#pragma unroll
-      for (int p = 0; p < 8; ++p) bv[p] = bs[kk * ldb + tx + 8 * p];
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int p = 0; p < 8; ++p) acc[q][p] = fmaf(av[q], bv[p], acc[q][p]);
-    }
-  }
-
-  __device__ void store(float* cs, int tid) {
-    const int tx = tid % 8, ty = tid / 8;
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-#pragma unroll
-      for (int p = 0; p < 8; ++p)
-        cs[(ty + 16 * q) * kLdc + tx + 8 * p] = acc[q][p];
-  }
-};
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -230,91 +81,17 @@ __device__ __forceinline__ float warp_sum(float v) {
 template <typename T, int kMode, bool kPre>
 __global__ void __launch_bounds__(kThreads)
 chain_conv3x3(const ConvArgs<T> p) {
-  constexpr int lda = Tile<T>::lda, ldb = Tile<T>::ldb;
-  constexpr int kABytes = kBM * lda * static_cast<int>(sizeof(T));
-  constexpr int kBBytes = kBK * ldb * static_cast<int>(sizeof(T));
-  constexpr int kCBytes = kBM * kLdc * static_cast<int>(sizeof(float));
-  constexpr int kSmem =
-      kABytes + kBBytes > kCBytes ? kABytes + kBBytes : kCBytes;
-  static_assert(kABytes % 32 == 0, "wmma wants 32-byte aligned tiles");
-  // The epilogue tile aliases the A and B tiles (used after the mainloop).
-  __shared__ __align__(128) unsigned char smem[kSmem];
+  __shared__ __align__(128) unsigned char smem[Smem<T>::kBytes];
   __shared__ float s_mean[kBM], s_inv[kBM], s_gamma[kBM], s_beta[kBM];
-  T* as = reinterpret_cast<T*>(smem);
-  T* bs = reinterpret_cast<T*>(smem + kABytes);
   float* cs = reinterpret_cast<float*>(smem);
 
-  const int c = p.c, hw = p.h * p.w, n_total = p.b * hw, k_total = 9 * c;
+  const int c = p.c, hw = p.h * p.w, n_total = p.b * hw;
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
+  const Pixel px = tile_pixel(n0, c, p.h, p.w, n_total, tid);
+  const int ln = px.ln, lk = px.lk;
 
-  // B loads and the epilogue: this thread's pixel (column ln of the tile)
-  // and rows lk, lk + 2, ...
-  const int ln = tid % kBN, lk = tid / kBN;
-  const int pix = n0 + ln;
-  const bool pix_ok = pix < n_total;
-  int py = 0, px = 0, pix_off = 0;
-  if (pix_ok) {
-    const int pb = pix / hw, rem = pix - pb * hw;
-    py = rem / p.w;
-    px = rem - py * p.w;
-    pix_off = pb * c * hw + rem;
-  }
-  // A loads: lane la takes one k of the step, rows lr, lr + 4, ...
-  const int la = tid % kBK, lr = tid / kBK;
-
-  T a_reg[kALoads], b_reg[kBLoads];
-  const T zero = from_f32<T>(0.f);
-
-  auto load_global = [&](int k0) {
-    const int ka = k0 + la;
-#pragma unroll
-    for (int j = 0; j < kALoads; ++j) {
-      const int m = m0 + lr + 4 * j;
-      a_reg[j] = (m < c && ka < k_total) ? p.weight[m * k_total + ka] : zero;
-    }
-#pragma unroll
-    for (int j = 0; j < kBLoads; ++j) {
-      const int k = k0 + lk + 2 * j;
-      T val = zero;
-      if (pix_ok && k < k_total) {
-        const int ch = k / 9, tap = k - 9 * ch;
-        const int dr = tap / 3 - 1, dc = tap - 3 * (tap / 3) - 1;
-        const int ys = py + dr, xs = px + dc;
-        if (ys >= 0 && ys < p.h && xs >= 0 && xs < p.w) {
-          val = p.in[pix_off + ch * hw + dr * p.w + dc];
-          if (kPre)
-            val = from_f32<T>(relu(round_to<T>(
-                bn(to_f32(val), p.pre.mean[ch], p.pre.inv[ch],
-                   p.pre.gamma[ch], p.pre.beta[ch]))));
-        }
-      }
-      b_reg[j] = val;
-    }
-  };
-  auto store_smem = [&]() {
-#pragma unroll
-    for (int j = 0; j < kALoads; ++j) as[(lr + 4 * j) * lda + la] = a_reg[j];
-#pragma unroll
-    for (int j = 0; j < kBLoads; ++j) bs[(lk + 2 * j) * ldb + ln] = b_reg[j];
-  };
-
-  Accum<T> acc;
-  acc.zero();
-  load_global(0);
-  store_smem();
-  __syncthreads();
-  for (int k0 = 0; k0 < k_total; k0 += kBK) {
-    const bool more = k0 + kBK < k_total;
-    if (more) load_global(k0 + kBK);  // in flight while this step computes
-    acc.step(as, bs, tid);
-    __syncthreads();
-    if (more) {
-      store_smem();
-      __syncthreads();
-    }
-  }
-  acc.store(cs, tid);
+  conv_tile<T, kPre>(p.in, p.weight, p.pre, c, p.h, p.w, m0, px, smem);
   if (kMode != kRawStats) {
     for (int r = tid; r < kBM; r += kThreads) {
       const int o = m0 + r;
@@ -332,9 +109,9 @@ chain_conv3x3(const ConvArgs<T> p) {
 #pragma unroll 4
   for (int j = 0; j < kBM / 2; ++j) {
     const int r = lk + 2 * j, o = m0 + r;
-    if (o >= c || !pix_ok) continue;
+    if (o >= c || !px.ok) continue;
     const float v = round_to<T>(cs[r * kLdc + ln]);
-    const int idx = pix_off + o * hw;
+    const int idx = px.off + o * hw;
     if (kMode == kRawStats) {
       cs[r * kLdc + ln] = v;
       p.out[idx] = from_f32<T>(v);

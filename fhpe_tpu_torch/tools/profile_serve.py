@@ -49,6 +49,7 @@ KERNEL_GROUPS = (
     ("decode_kernel", "decode kernel"),
     ("wgrad_", "conv wgrad kernel (P4)"),
     ("chain_", "branch chain kernel (P5)"),
+    ("conv3x3_fwd", "conv3x3_fwd kernel (P1-P3)"),
     ("multi_tensor_apply", "optimizer"),
     ("reduce_kernel", "reductions"),
     ("batch_norm", "batchnorm"),

@@ -35,13 +35,14 @@ from ..data.coco_synthetic import synthetic_train_batch
 from ..models import common, get_pose_net
 from ..models.pose_hrnet import BranchChain
 from ..train import (create_train_state, make_batch_preprocessor,
-                     make_fpd_train_step)
+                     make_fpd_train_step, make_train_step)
 
 REPO = Path(__file__).resolve().parents[2]
 STUDENT_YAML = REPO / "experiments/fpd_mpii/hourglass/hg4_128_fpd_student.yaml"
 TEACHER_YAML = REPO / "experiments/mpii/hourglass/hg8_256x256_teacher.yaml"
 HRNET_STUDENT_YAML = REPO / "experiments/fpd_coco/hrnet/w32_fpd_student.yaml"
 HRNET_TEACHER_YAML = REPO / "experiments/coco/hrnet/w48_256x192_teacher.yaml"
+RN50_YAML = REPO / "experiments/coco/resnet/res50_256x192_d256x3_adam_lr1e-3.yaml"
 
 
 def fpd_cfgs(dtype="bfloat16", stacks=None, features=None, image_size=None,
@@ -182,6 +183,26 @@ def one_fpd_step(scfg, tcfg, student, teacher, batch, device, wgrad=None,
                                       for k, v in batch.items()})
     return state, {k: metrics[k].item()
                    for k in ("loss", "pose_loss", "kd_loss")}
+
+
+def rn50_cfg(dtype="bfloat16"):
+    """PoseResNet-50 on COCO 256x192 (``res50_256x192_d256x3_adam_lr1e-3
+    .yaml``: Adam lr 1e-3, a plain train step) in ``dtype``."""
+    return load_config(str(RN50_YAML), ["TPU.COMPUTE_DTYPE", dtype])
+
+
+def one_train_step(cfg, model, batch, device, fwd_kernel=True):
+    """One plain train step (``make_train_step``) on a copy of ``model`` (a
+    CPU module) on ``device``, in the config's compute dtype;
+    ``fwd_kernel=False`` sends every 3x3 conv routed to the conv3x3_fwd
+    kernel to cuDNN instead.  Returns (state, {"loss": float})."""
+    device = torch.device(device)
+    state = create_train_state(cfg, copy.deepcopy(model), device=device)
+    for m in common.fwd_kernel_convs(state.model):
+        m.fwd_kernel = fwd_kernel
+    step = make_train_step(cfg, prepare=make_batch_preprocessor(cfg))
+    state, metrics = step(state, {k: v.to(device) for k, v in batch.items()})
+    return state, {"loss": metrics["loss"].item()}
 
 
 def step_diff(a, b):

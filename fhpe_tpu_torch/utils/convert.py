@@ -1,8 +1,9 @@
 """Carry ``fhpe_tpu`` (flax) weights over to the port.
 
 :func:`state_dict_from_jax` is the inverse of
-``fhpe_tpu.utils.torch_import.import_hourglass``: it walks the same name
-mapping the other way, so one weight set drives both forwards.
+``fhpe_tpu.utils.torch_import.import_hourglass``, ``import_hrnet`` and
+``import_pose_resnet``: it walks the same name mapping the other way, so
+one weight set drives both forwards.
 :func:`adam_state_from_jax` carries optax Adam's moments over by the same
 mapping.  Both take the flax trees as numpy and need no JAX.
 """
@@ -13,6 +14,8 @@ from typing import Dict, Iterator, Tuple
 
 import numpy as np
 import torch
+
+from ..models.pose_resnet import RESNET_SPEC
 
 
 def _bottleneck(tprefix: str, path: Tuple[str, ...], downsample: bool):
@@ -126,6 +129,34 @@ def _hrnet_layers(extra) -> Iterator[Tuple[str, str, tuple]]:
     yield "conv", "final_layer", ("final_layer",)
 
 
+def _pose_resnet_layers(extra) -> Iterator[Tuple[str, str, tuple]]:
+    """(kind, torch prefix, flax path) for every conv, transposed conv and
+    BN of PoseResNet.
+
+    Mirrors ``import_pose_resnet`` (``fhpe_tpu/utils/torch_import.py``):
+    ``layer{i}.{b}`` is flax ``layer{i}/b{b}``, the first block of a layer
+    projects where the stride or the width changes, and torch
+    ``deconv_layers.{3i,3i+1}`` are flax ``deconv{i}`` / ``deconv{i}_bn``.
+    """
+    block, layers = RESNET_SPEC[extra.NUM_LAYERS]
+    exp = block.expansion
+    kind = "BASIC" if exp == 1 else "BOTTLENECK"
+    yield "conv", "conv1", ("conv1",)
+    yield "bn", "bn1", ("bn1",)
+    inplanes = 64
+    for li, n in enumerate(layers):
+        planes = 64 * 2 ** li
+        for b in range(n):
+            yield from _postact_block(
+                f"layer{li + 1}.{b}", (f"layer{li + 1}", f"b{b}"), kind,
+                downsample=b == 0 and (li > 0 or inplanes != planes * exp))
+        inplanes = planes * exp
+    for i in range(extra.NUM_DECONV_LAYERS):
+        yield "deconv", f"deconv_layers.{3 * i}", (f"deconv{i}",)
+        yield "bn", f"deconv_layers.{3 * i + 1}", (f"deconv{i}_bn",)
+    yield "conv", "final_layer", ("final_layer",)
+
+
 def _get(tree: dict, path: Tuple[str, ...]):
     for p in path:
         tree = tree[p]
@@ -138,9 +169,10 @@ def _layers(cfg) -> Iterator[Tuple[str, str, tuple]]:
         return _hourglass_layers(extra.NUM_STACKS, extra.NUM_BLOCKS)
     if cfg.MODEL.NAME == "pose_hrnet":
         return _hrnet_layers(extra)
-    raise NotImplementedError(
-        f"state_dict_from_jax: MODEL.NAME '{cfg.MODEL.NAME}' is not "
-        f"ported yet (ROADMAP.md queue A, item 9)")
+    if cfg.MODEL.NAME == "pose_resnet":
+        return _pose_resnet_layers(extra)
+    raise KeyError(f"state_dict_from_jax: unknown MODEL.NAME "
+                   f"'{cfg.MODEL.NAME}'")
 
 
 def _t(a) -> torch.Tensor:
@@ -160,6 +192,14 @@ def _param_tensors(cfg, params: dict) -> Dict[str, torch.Tensor]:
                                                     (3, 2, 0, 1)))
             if "bias" in leaf:
                 out[f"{tkey}.bias"] = _t(leaf["bias"])
+        elif kind == "deconv":
+            # flax ConvTranspose (KH, KW, I, O) with the kernel flipped in
+            # KH and KW (torch_import._deconv_w) -> torch (I, O, KH, KW)
+            leaf = _get(params, path + ("ConvTranspose_0",))
+            out[f"{tkey}.weight"] = _t(np.ascontiguousarray(np.transpose(
+                np.asarray(leaf["kernel"])[::-1, ::-1], (2, 3, 0, 1))))
+            if "bias" in leaf:
+                out[f"{tkey}.bias"] = _t(leaf["bias"])
         else:
             leaf = _get(params, path + ("BatchNorm_0",))
             out[f"{tkey}.weight"] = _t(leaf["scale"])
@@ -170,7 +210,8 @@ def _param_tensors(cfg, params: dict) -> Dict[str, torch.Tensor]:
 def state_dict_from_jax(cfg, variables: dict) -> Dict[str, torch.Tensor]:
     """flax ``{"params", "batch_stats"}`` tree (numpy leaves) -> state_dict.
 
-    Conv kernels HWIO -> OIHW; BN ``scale/bias/mean/var`` ->
+    Conv kernels HWIO -> OIHW; transposed-conv kernels flipped back and
+    (KH, KW, I, O) -> (I, O, KH, KW); BN ``scale/bias/mean/var`` ->
     ``weight/bias/running_mean/running_var``; ``num_batches_tracked`` = 0.
     A conv without a bias in the tree (``TPU.DEAD_BIAS_SKIP``) gets none.
     """

@@ -113,7 +113,17 @@ def test_eval_forward_matches_jax(dead_bias_skip):
 
 
 def test_unported_models_raise():
-    cfg = _cfg(2, 32)
+    """Every MODEL.NAME of fhpe_tpu is ported; the port refuses a
+    PoseResNet deconv of kernel 3, where fhpe_tpu's Deconv departs from
+    torch's (ROADMAP.md queue C), and an unknown name."""
+    cfg = get_default_config()
     cfg.MODEL.NAME = "pose_resnet"
-    with pytest.raises(NotImplementedError):
+    cfg.MODEL.EXTRA = MODEL_EXTRAS["pose_resnet"]()
+    cfg.MODEL.EXTRA.NUM_LAYERS = 18
+    cfg.MODEL.EXTRA.NUM_DECONV_KERNELS = [3, 3, 3]
+    with torch.device("meta"), pytest.raises(NotImplementedError,
+                                             match="queue C"):
+        get_pose_net(cfg)
+    cfg.MODEL.NAME = "pose_resnet2"
+    with pytest.raises(KeyError):
         get_pose_net(cfg)
