@@ -59,16 +59,18 @@ Phases; any failure raises and exits non-zero:
     truth boxes: decode launches == chunks, NMS launches == images, the
     10 stats finite;
 11. P4 (3x3 filter gradient) kernel against its plain version on every
-    3x3 conv shape of the student at batch 32 and on edge cases, bf16 and
-    float32, planted inputs: within 1e-5 of max|dW|, two runs bit-equal;
-    then the device time of the kernel, its plain version and cuDNN's
-    weight gradient (``aten.convolution_backward``, timed, never used);
+    shape of the three train steps' P4 sets at batch 32, edge and wide
+    cases, bf16 and float32, planted inputs: within the bars of
+    ``tools/profile_wgrad.py``, two runs bit-equal; tensor-core
+    instructions in the bf16 entries' SASS; then the device time of the
+    kernel, its plain version and cuDNN's weight gradient
+    (``aten.convolution_backward``, timed, never used);
 12. the FPD train step at full width (bf16, batch 32, DEAD_BIAS_SKIP as
     bench.py trains): P4 launches == 59 and decode launches == 2 per
     step, finite losses, the loss falling over 20 steps on one batch,
     warm train images/s, and a profile (idle share, device ops per step,
-    kernel ms by group, P4 ms per step against cuDNN wgrad on the same
-    59 shapes);
+    kernel ms by group), and P4 on each of the three train steps' P4
+    shape sets against cuDNN wgrad on the same shapes;
 13. float32 train-step parity (TF32 off): one FPD step at full width,
     batch 2, on the card against the same port on the CPU (bars that
     allow a float32 step's chaos), and on the card with P4 against the
@@ -177,11 +179,6 @@ TRAIN_STEPS = 20           # on one repeated batch: the loss must fall
 P4_PER_STEP = 59           # 3x3 stride-1 convs of the student (tests pin it)
 K1_PER_TRAIN_STEP = 2      # the PCK counts' argmaxes: output and target
 K1_PER_EVAL_BATCH = 3      # the decode and the two PCK argmaxes
-WGRAD_TIMED = (32, 64, 64, 64)   # the student's 64x64 conv2s, batch 32
-# P4 kernel against its plain version: with bf16 inputs every product is
-# exact in float32, so only the order of the float32 sums differs (with
-# float32 inputs also where a product is fused into its sum).
-WGRAD_REL_TOL = 1e-5
 MPII_PEOPLE = 56           # two eval batches of 32, the last one padded
 # float32 train-step parity (one FPD step at full width, batch 2, TF32
 # off).  A float32 step is only good to a few percent in its gradients:
@@ -861,72 +858,41 @@ def phase_coco_predictor(p, cfg, gt, device, out_dir, totals) -> None:
 # -- training -----------------------------------------------------------------
 
 def phase_wgrad_kernel(device) -> dict:
-    """P4 kernel against its plain version on planted cases at every 3x3
-    conv shape of the student (batch 32) and edge cases, bf16 and
-    float32; two runs bit-equal; timings at WGRAD_TIMED in bf16."""
-    import torch
-    from fhpe_tpu_torch.ops.conv_wgrad import (conv3x3_wgrad,
-                                               conv3x3_wgrad_plain)
-    from fhpe_tpu_torch.ops.conv_wgrad_cases import (EDGE_SHAPES,
-                                                     STUDENT_SHAPES,
-                                                     planted_wgrad_cases)
-    from fhpe_tpu_torch.tools.train_parity import cudnn_wgrad
-    from fhpe_tpu_torch.utils.profiling import device_ms
+    """P4 against its plain version on planted cases at every shape of the
+    three train steps' sets (batch 32), edge and wide cases, bf16 and
+    float32; two runs bit-equal; the bf16 entries' SASS holds tensor-core
+    instructions; timings at ``profile_wgrad.TIMED`` in bf16
+    (``fhpe_tpu_torch/tools/profile_wgrad.py``)."""
+    from fhpe_tpu_torch.tools import profile_wgrad
 
-    max_err, max_rel, checked = 0.0, 0.0, 0
-    for shape in STUDENT_SHAPES + EDGE_SHAPES:
-        for name, x, dy in planted_wgrad_cases(*shape, seed=sum(shape)):
-            for dt in (torch.bfloat16, torch.float32):
-                xt = torch.from_numpy(x).to(device, dt)
-                dyt = torch.from_numpy(dy).to(device, dt)
-                k1, k2 = conv3x3_wgrad(xt, dyt), conv3x3_wgrad(xt, dyt)
-                ref = conv3x3_wgrad_plain(xt, dyt)
-                sync(device)
-                err = (k1 - ref).abs().max().item()
-                scale = ref.abs().max().item()
-                if not (torch.equal(k1, k2) and err <= WGRAD_REL_TOL * scale):
-                    raise AssertionError(
-                        f"P4 kernel on {name} {shape} {dt}: max|diff| {err} "
-                        f"against max|dW| {scale}, runs bit-equal "
-                        f"{torch.equal(k1, k2)}")
-                max_err = max(max_err, err)
-                max_rel = max(max_rel, err / scale if scale else 0.0)
-                checked += 1
-    log("wgrad", f"P4 kernel within {WGRAD_REL_TOL} of max|dW| of its plain "
-        f"version on {checked} cases (bf16 and float32; max|diff| "
-        f"{max_err:.3g}, {max_rel:.3g} of max|dW|), two runs bit-equal")
+    chk = profile_wgrad.check_cases(device)
+    log("wgrad", f"P4 kernel within {profile_wgrad.REL_TOL} of max|dW| of "
+        f"its plain version on {chk['cases']} cases, bf16 and float32 "
+        f"(worst bf16 {chk['bf16']:.3g}, "
+        f"float32 {chk['float32']:.3g}; bf16 against float64 "
+        f"{chk['bf16 vs float64']:.3g}, the plain version "
+        f"{chk['plain vs float64']:.3g}), two runs bit-equal")
 
-    b, c, h, w = WGRAD_TIMED
-    # x and dy read once (bf16), dW written once (float32); 2 * 9 C^2
-    # operations per pixel on bf16 inputs
-    lim = bound(2 * 2 * b * c * h * w + 4 * 9 * c * c,
-                2 * 9 * c * c * b * h * w, BF16_OPS_PER_S)
-    out = {"max_abs_err": max_err, "ms": None, "plain_ms": None,
-           "library_ms": None, **lim}
+    bound_ms, bound_by = profile_wgrad.bound_ms([profile_wgrad.TIMED])
+    out = {"max_abs_err": chk["max_abs_err"], "ms": None, "plain_ms": None,
+           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
     if device.type != "cuda":
         return out
-    _, x, dy = planted_wgrad_cases(*WGRAD_TIMED, seed=1)[0]
-    x, dy = (torch.from_numpy(a).to(device, torch.bfloat16) for a in (x, dy))
-    weight = torch.zeros((c, c, 3, 3), dtype=torch.bfloat16, device=device)
-
-    def kernel():
-        return conv3x3_wgrad(x, dy)
-
-    def plain():
-        return conv3x3_wgrad_plain(x, dy)
-
-    def library():
-        return cudnn_wgrad(x, dy, weight)
-
-    dp1, dk1, dk2, dp2 = (device_ms(f, 20) for f in (plain, kernel, kernel,
-                                                     plain))
-    dl = device_ms(library, 20)
-    out.update(ms=(dk1 + dk2) / 2, plain_ms=(dp1 + dp2) / 2, library_ms=dl)
-    log("wgrad", f"P4 {WGRAD_TIMED} bf16: device time per call (profiler) "
-        f"kernel {dk1:.4f}/{dk2:.4f} ms, plain {dp1:.4f}/{dp2:.4f} ms, cuDNN "
-        f"wgrad {dl:.4f} ms; bound {lim['bound_ms']:.5f} ms "
-        f"({lim['bound_by']}); kernel at "
-        f"{2 * 9 * c * c * b * h * w / out['ms'] / 1e9:.2f} TFLOP/s")
+    mma = profile_wgrad.tensor_core_counts()
+    bf16 = {k: v for k, v in mma.items() if "wgrad_bf16" in k}
+    if mma and not all(sum(v) > 0 for v in bf16.values()):
+        raise AssertionError(f"wgrad: bf16 entries without tensor-core "
+                             f"instructions: {bf16}")
+    log("wgrad", f"SASS (HMMA, HGMMA) per bf16 entry: "
+        f"{bf16 or 'no cuobjdump'}")
+    t = profile_wgrad.time_one(device)
+    out.update(ms=sum(t["ms"]) / 2, plain_ms=sum(t["plain_ms"]) / 2,
+               library_ms=t["library_ms"])
+    log("wgrad", f"P4 {profile_wgrad.TIMED} bf16: device time per call "
+        f"(profiler) kernel {t['ms'][0]:.4f}/{t['ms'][1]:.4f} ms, plain "
+        f"{t['plain_ms'][0]:.4f}/{t['plain_ms'][1]:.4f} ms, cuDNN wgrad "
+        f"{t['library_ms']:.4f} ms; bound {bound_ms:.5f} ms ({bound_by}); "
+        f"kernel at {t['tflops']:.2f} TFLOP/s")
     return out
 
 
@@ -1031,37 +997,25 @@ def phase_fpd_train(device, totals, label):
 
 
 def phase_wgrad_step_shapes(device, shapes) -> None:
-    """P4 on the 59 shapes of one student step against cuDNN wgrad on the
-    same shapes and inputs (bf16), device time under the profiler."""
-    import torch
-    from fhpe_tpu_torch.ops.conv_wgrad import conv3x3_wgrad
-    from fhpe_tpu_torch.tools.train_parity import cudnn_wgrad
-    from fhpe_tpu_torch.utils.profiling import device_ms
+    """The P4 shapes recorded in one student step are the hourglass set of
+    ``conv_wgrad_cases.STEP_SHAPES``; then P4 on each of the three train
+    steps' sets against cuDNN wgrad on the same shapes and inputs (bf16),
+    device time under the profiler, in turns."""
+    from fhpe_tpu_torch.ops.conv_wgrad_cases import STEP_SHAPES
+    from fhpe_tpu_torch.tools import profile_wgrad
+    want = {(TRAIN_BATCH, *s[1:]): n
+            for s, n in STEP_SHAPES["hourglass"].items()}
+    if dict(Counter(shapes)) != want:
+        raise AssertionError(f"wgrad: the student step's P4 shapes "
+                             f"{dict(Counter(shapes))}, want {want}")
     if device.type != "cuda":
         return
-    gen = torch.Generator(device=device).manual_seed(0)
-    inputs = {s: (torch.randn(s, device=device, generator=gen
-                              ).to(torch.bfloat16),
-                  torch.randn(s, device=device, generator=gen
-                              ).to(torch.bfloat16),
-                  torch.zeros((s[1], s[1], 3, 3), dtype=torch.bfloat16,
-                              device=device))
-              for s in set(shapes)}
-
-    def p4():
-        for s in shapes:
-            conv3x3_wgrad(*inputs[s][:2])
-
-    def library():
-        for s in shapes:
-            cudnn_wgrad(*inputs[s])
-
-    k1, l1, l2, k2 = (device_ms(f, 5) for f in (p4, library, library, p4))
-    flop = sum(2 * 9 * s[1] ** 2 * s[0] * s[2] * s[3] for s in shapes)
-    log("wgrad", f"the {len(shapes)} P4 shapes of one student step "
-        f"({flop / 1e9:.1f} GFLOP): P4 {k1:.3f}/{k2:.3f} ms, cuDNN wgrad "
-        f"{l1:.3f}/{l2:.3f} ms device time; bound "
-        f"{flop / BF16_OPS_PER_S * 1e3:.4f} ms at the bf16 peak")
+    for name, r in profile_wgrad.time_step_sets(device).items():
+        log("wgrad", f"the {r['calls']} P4 shapes of one {name} step "
+            f"({r['gflop']:.1f} GFLOP): P4 {r['p4_ms'][0]:.3f}/"
+            f"{r['p4_ms'][1]:.3f} ms ({r['p4_tflops']:.1f} TFLOP/s), cuDNN "
+            f"wgrad {r['cudnn_ms'][0]:.3f}/{r['cudnn_ms'][1]:.3f} ms device "
+            f"time; bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
 
 
 def phase_f32_train_parity(device) -> None:

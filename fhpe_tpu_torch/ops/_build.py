@@ -110,7 +110,7 @@ def load_library() -> ctypes.CDLL:
                                          vp]
     lib.fhpe_greedy_nms_mask.restype = ci
     lib.fhpe_conv3x3_wgrad.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                       ci, ci, vp]
+                                       ci, ci, ctypes.POINTER(ci), vp]
     lib.fhpe_conv3x3_wgrad.restype = ci
     pp = ctypes.POINTER(vp)
     lib.fhpe_branch_chain_eval.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci,

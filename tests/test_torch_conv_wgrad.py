@@ -6,6 +6,8 @@ itself is checked on the card by ``chip_smoke.py``."""
 
 import importlib.util
 import os
+import re
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -19,10 +21,16 @@ from jax.experimental.pallas import tpu as pltpu
 from fhpe_tpu_torch.models import get_pose_net
 from fhpe_tpu_torch.models.common import Conv3x3, conv
 from fhpe_tpu_torch.ops import conv_wgrad
-from fhpe_tpu_torch.ops.conv_wgrad import (conv3x3_wgrad,
+from fhpe_tpu_torch.ops.conv_wgrad import (BF16_MAX_KPAD, BF16_SMEM_BUDGET,
+                                           BF16_SMEM_MAX, BF16_TILE_CI,
+                                           Bf16Geometry, bf16_plan,
+                                           conv3x3_wgrad,
                                            conv3x3_wgrad_plain, split_k)
-from fhpe_tpu_torch.ops.conv_wgrad_cases import (EDGE_SHAPES, STUDENT_SHAPES,
+from fhpe_tpu_torch.ops.conv_wgrad_cases import (EDGE_SHAPES, STEP_SHAPES,
+                                                 STUDENT_SHAPES, WIDE_SHAPES,
                                                  planted_wgrad_cases)
+from fhpe_tpu_torch.tools.train_parity import (fpd_cfgs, hrnet_fpd_cfgs,
+                                               rn50_cfg)
 
 from test_torch_hourglass import _cfg
 
@@ -109,12 +117,129 @@ def test_planted_cases_against_conv_backward(shape):
         _close(got.numpy(), ref.numpy())
 
 
-def test_split_k_covers_every_pixel():
-    for b, c, h, w in STUDENT_SHAPES + EDGE_SHAPES:
-        k = b * h * w
-        chunk, slices = split_k(c, k)
-        assert chunk % 32 == 0 and slices >= 1
-        assert (slices - 1) * chunk < k <= slices * chunk
+ALL_SHAPES = sorted({s for d in STEP_SHAPES.values() for s in d}
+                    | set(STUDENT_SHAPES)) + EDGE_SHAPES + WIDE_SHAPES
+
+
+@pytest.mark.parametrize("shape", ALL_SHAPES)
+def test_split_k_covers_every_pixel(shape):
+    """float32 (``split_k``): the slices cover the B*H*W pixels once.
+    bf16 (``bf16_plan``, at 16-byte and 2-byte aligned pointers): the
+    block tiles cover every (o, i, tap) of dW once, the slices' K tiles
+    cover every pixel once, runs are taken only where the rows are
+    aligned runs, and the tile fits the kernel's limits."""
+    b, c, h, w = shape
+    k = b * h * w
+    chunk, slices = split_k(c, k)
+    assert chunk % 32 == 0 and slices >= 1
+    assert (slices - 1) * chunk < k <= slices * chunk
+    for align in (16, 2):
+        plan = bf16_plan(b, c, h, w, align)
+        dw = np.zeros((c, c, 9), int)
+        for m0 in range(0, c, plan.tile_m):
+            for i0 in range(0, c, BF16_TILE_CI):
+                dw[m0:m0 + plan.tile_m, i0:i0 + BF16_TILE_CI] += 1
+        assert (dw == 1).all()
+        g = plan.geometry
+        assert (g.bands, g.col_tiles) == (-(-h // g.rows), -(-w // g.cols))
+        assert plan.k_tiles == b * g.bands * g.col_tiles
+        pixels = np.zeros((b, h, w), int)
+        for z in range(plan.slices):
+            first = z * plan.tiles_per_slice
+            assert first < plan.k_tiles
+            for t in range(first, min(plan.k_tiles,
+                                      first + plan.tiles_per_slice)):
+                rest, cc = divmod(t, g.col_tiles)
+                sample, band = divmod(rest, g.bands)
+                pixels[sample, band * g.rows:(band + 1) * g.rows,
+                       cc * g.cols:(cc + 1) * g.cols] += 1
+        assert (pixels == 1).all()
+        if plan.runs:           # whole-row runs of 16-byte copies
+            assert align == 16 and g.cols == w and w % 2 == 0
+            assert (h * w) % 8 == 0 and (g.rows * w) % 8 == 0
+        assert g.rows == 1 or (g.kpad <= BF16_MAX_KPAD
+                               and g.smem <= BF16_SMEM_BUDGET)
+        assert g.smem <= BF16_SMEM_MAX
+    if shape in {s for d in STEP_SHAPES.values() for s in d}:
+        assert bf16_plan(*shape).runs            # 16-byte runs on each step
+
+
+@pytest.mark.parametrize("c", [8, 32, 64, 512])
+def test_bf16_plan_fits_every_width(c):
+    """At every W up to past the column span, for H from 1 to 16 and at
+    both alignments, the bf16 tile fits an H100 block's shared memory and
+    its runs need what the kernel's loads need: a shape whose run tiles
+    are all too large (W = 2 mod 4 from 82 up) takes halo columns."""
+    for w in range(1, 2 * 128 + 3):
+        for h in (1, 2, 3, 4, 5, 7, 8, 16):
+            for align in (16, 2):
+                plan = bf16_plan(2, c, h, w, align)
+                g = plan.geometry
+                assert g.smem <= BF16_SMEM_MAX, (h, w, align, plan)
+                assert g.kpad <= BF16_MAX_KPAD
+                assert g.rows == 1 or g.smem <= BF16_SMEM_BUDGET
+                if plan.runs:
+                    assert (g.rows * w) % 8 == 0 and g.cols == w
+    assert bf16_plan(2, c, 4, 126) is bf16_plan(2, c, 4, 126)   # cached
+
+
+def _cu_source():
+    with open(os.path.join(REPO, "fhpe_tpu_torch/ops/csrc/conv_wgrad.cu"),
+              encoding="utf-8") as f:
+        return f.read()
+
+
+def test_bf16_geometry_is_the_kernels_struct():
+    """The kernel takes the host's layout as its ``Geometry`` struct, ints
+    in the order of ``Bf16Geometry``'s fields, and the host's constants are
+    the kernel's."""
+    src = _cu_source()
+    body = re.search(r"struct Geometry \{(.*?)\};", src, re.S).group(1)
+    fields = re.findall(r"\b([a-z_]+)\s*[,;]", body)
+    assert tuple(fields) == Bf16Geometry._fields
+    ints = re.search(r"constexpr int kGeometryInts = (\d+);", src).group(1)
+    assert int(ints) == len(Bf16Geometry._fields)
+    for name, value in [("kCi", conv_wgrad.BF16_TILE_CI),
+                        ("kStages", conv_wgrad.BF16_STAGES),
+                        ("kFront", conv_wgrad.BF16_FRONT),
+                        ("kOutPitch", conv_wgrad.BF16_OUT_PITCH)]:
+        got = re.search(rf"constexpr int {name} = (\d+);", src).group(1)
+        assert int(got) == value, name
+
+
+def _step_wgrad_shapes(monkeypatch, cfg):
+    """The (B, C, H, W) of every conv3x3_wgrad call of one training
+    backward of ``cfg``'s model at batch 1, as {shape: calls}."""
+    calls = []
+    real = conv_wgrad.conv3x3_wgrad
+
+    def counting(x, dy):
+        calls.append(tuple(x.shape))
+        return real(x, dy)
+
+    monkeypatch.setattr("fhpe_tpu_torch.models.common.conv3x3_wgrad",
+                        counting)
+    monkeypatch.setattr(conv_wgrad, "conv3x3_wgrad", counting)
+    torch.manual_seed(0)
+    model = get_pose_net(cfg).train()
+    w, h = (int(v) for v in cfg.MODEL.IMAGE_SIZE)
+    out = model(torch.randn(1, 3, h, w))
+    outs = out if isinstance(out, (list, tuple)) else [out]
+    sum(o.square().sum() for o in outs).backward()
+    return dict(Counter(calls))
+
+
+@pytest.mark.parametrize("name,cfg", [
+    ("hourglass", lambda: fpd_cfgs("float32")[0]),
+    ("w48_w32", lambda: hrnet_fpd_cfgs("float32")[0]),
+    ("rn50", lambda: rn50_cfg("float32"))])
+def test_step_shape_sets_match_the_models(monkeypatch, name, cfg):
+    """Each step set of ``conv_wgrad_cases.STEP_SHAPES`` (batch 32) is what
+    the student's training backward hands P4, at full width (batch 1)."""
+    got = _step_wgrad_shapes(monkeypatch, cfg())
+    want = {(1, *s[1:]): n for s, n in STEP_SHAPES[name].items()}
+    assert got == want
+    assert {s[0] for s in STEP_SHAPES[name]} == {32}
 
 
 def test_wrapper_rejects_bad_input():
