@@ -102,11 +102,14 @@ Phases; any failure raises and exits non-zero:
     through ``make_evaluate_fn``: 52 P5e and 3 decode launches per batch,
     one OKS and one greedy launch per image, 10 finite stats;
 20. the conv3x3_fwd kernel against its plain version on the four RN-50
-    3x3 shapes at batch 32, the probes' shape and edge cases (B = 1 and 3,
-    C = 8 and 40, 1x1 and 3x130 images), bf16 -> bf16, bf16 -> float32 and
-    float32 -> float32, TF32 off, at the bars of ``CONV_*``; two runs
-    bit-equal; then the device time of the kernel, its plain version and
-    ``F.conv2d`` (cuDNN, timed, never used) at those shapes;
+    3x3 shapes at batch 32, the probes' shape, edge cases (B = 1 and 3,
+    C = 8 and 40, 1x1 and 3x130 images) and wide cases (W = 200 and 258,
+    odd W, C = 12, 20, 24, 72 and 1024), bf16 -> bf16, bf16 -> float32 and
+    float32 -> float32, TF32 off, at the bars of
+    ``tools/profile_conv.py``; two runs bit-equal; HMMA in the bf16
+    entries' SASS; then the device time of the kernel, its plain version
+    and ``F.conv2d`` (cuDNN, timed, never used) at the RN-50 and probe
+    shapes;
 21. RN-50 serve in bf16 with the checks of phase 5 (26 conv3x3_fwd
     launches per chunk), then float32 card-vs-CPU parity at phase 6's bars
     inside a main-path window (the float32-out kernel, 26 per Predictor
@@ -138,7 +141,6 @@ from __future__ import annotations
 import copy
 import json
 import math
-import subprocess
 import sys
 import tempfile
 import time
@@ -233,20 +235,15 @@ HRNET_P5_STEP_BARS = (1e-5, 1e-4, 0.03, 0.5, 1e-3)
 RN50_YAML = REPO / "experiments/coco/resnet/res50_256x192_d256x3_adam_lr1e-3.yaml"
 RN50_ROUTED = 13
 RN50_TRAIN_STEPS = 10      # on one repeated batch: the loss must fall
-# conv3x3_fwd against its plain version: float32 out within CONV_F32_REL_TOL
-# of max|y|, because only the order of the float32 sums differs (bf16
-# products are exact in float32; the tensor cores' sums and the CUDA
-# cores' fmaf against cuBLAS); bf16 out within one bf16 ulp of the plain
-# value elementwise plus that same float32 slack, because two float32
-# sums that differ by d round at most one ulp plus d apart (near 0, where
-# a 9C-term sum cancels, d exceeds the ulp).
-CONV_F32_REL_TOL = 1e-5
+# conv3x3_fwd against its plain version: the bars of
+# fhpe_tpu_torch/tools/profile_conv.py (REL_TOL).
+
 # float32 RN-50 step parity (full width, batch 2, TF32 off), as (loss
 # rtol, BN stats, moments relative L2, worst moment tensor, share of live
 # parameters off by > 1% of lr): card with the conv3x3_fwd route against
 # the card with cuDNN's forwards in its place.  The route changes the 13
-# convs' outputs by float32 rounding (phase 20: ~2e-6 of max|y|), which
-# train-mode BN over two samples amplifies as it amplifies card against
+# convs' outputs by float32 rounding (~2e-6 of max|y| on the CUDA cores),
+# which train-mode BN over two samples amplifies as it amplifies card against
 # CPU; measured on an H100: losses equal, BN stats 7.0e-8, moments 2.5e-4
 # and 2.8e-4 relative L2 (worst tensor 6.5e-4), no live parameter off;
 # card against CPU 8.3e-7, 7.2e-6, 2.9e-2 and 3.4e-2 (worst 0.20), 0.54%
@@ -311,14 +308,6 @@ CHAIN_GRAD_REL_L2 = 1e-2
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
-
-
-def card_label() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def on_card(device, n: int) -> int:
@@ -864,6 +853,7 @@ def phase_wgrad_kernel(device) -> dict:
     instructions; timings at ``profile_wgrad.TIMED`` in bf16
     (``fhpe_tpu_torch/tools/profile_wgrad.py``)."""
     from fhpe_tpu_torch.tools import profile_wgrad
+    from fhpe_tpu_torch.utils.profiling import tensor_core_counts
 
     chk = profile_wgrad.check_cases(device)
     log("wgrad", f"P4 kernel within {profile_wgrad.REL_TOL} of max|dW| of "
@@ -878,7 +868,7 @@ def phase_wgrad_kernel(device) -> dict:
            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
     if device.type != "cuda":
         return out
-    mma = profile_wgrad.tensor_core_counts()
+    mma = tensor_core_counts("wgrad")
     bf16 = {k: v for k, v in mma.items() if "wgrad_bf16" in k}
     if mma and not all(sum(v) > 0 for v in bf16.values()):
         raise AssertionError(f"wgrad: bf16 entries without tensor-core "
@@ -1667,124 +1657,63 @@ def phase_eval_mpii(model, device, out_dir, totals) -> None:
 
 # -- PoseResNet-50: conv3x3_fwd ----------------------------------------------
 
-def conv_bound(shape, out_bytes: int) -> dict:
-    """Least time for one bf16-input conv3x3_fwd call: 18 C^2 operations
-    per pixel at the bf16 peak, or its bytes: x and the weights read once
-    (bf16), y written once (``out_bytes`` per value)."""
-    b, c, h, w = shape
-    n = b * c * h * w
-    return bound(2 * n + 2 * 9 * c * c + out_bytes * n,
-                 18 * c * c * b * h * w, BF16_OPS_PER_S)
-
-
 def phase_conv_kernel(device) -> dict:
     """conv3x3_fwd against its plain version on planted cases at the RN-50
-    shapes, the probes' shape and edge cases, in its three modes, TF32 off;
-    two runs bit-equal; then device times of the kernel, its plain version
-    and ``F.conv2d`` at the RN-50 and probe shapes."""
+    shapes, the probes' shape, edge and wide cases, in its three modes,
+    TF32 off; two runs bit-equal; HMMA in the bf16 entries' SASS; then
+    device times of the kernel, its plain version and ``F.conv2d`` at the
+    RN-50 and probe shapes (``fhpe_tpu_torch/tools/profile_conv.py``)."""
     import torch
-    import torch.nn.functional as F
-    from fhpe_tpu_torch.ops.conv3x3_fwd import conv3x3_fwd, conv3x3_fwd_plain
-    from fhpe_tpu_torch.ops.conv3x3_fwd_cases import (EDGE_SHAPES,
-                                                      PROBE_SHAPE,
-                                                      RN50_SHAPES, bf16_ulp,
-                                                      conv_cases,
-                                                      within_bf16_ulp)
-    from fhpe_tpu_torch.tools.train_parity import tf32_off
-    from fhpe_tpu_torch.utils.profiling import device_ms
+    from fhpe_tpu_torch.ops.conv3x3_fwd_cases import PROBE_SHAPE, RN50_SHAPES
+    from fhpe_tpu_torch.tools import profile_conv
+    from fhpe_tpu_torch.utils.profiling import tensor_core_counts
 
-    modes = {"bf16 -> bf16": (torch.bfloat16, None),
-             "bf16 -> f32": (torch.bfloat16, torch.float32),
-             "f32 -> f32": (torch.float32, None)}
-    # per mode: max|diff| / max|y|, max|diff|, share beyond one bf16 ulp
-    worst = {m: [0.0, 0.0, 0.0] for m in modes}
-    bad, checked = [], 0
-    with tf32_off():
-        for shape in RN50_SHAPES + [PROBE_SHAPE] + EDGE_SHAPES:
-            for name, xn, wn in conv_cases(*shape, seed=sum(shape)):
-                for mode, (din, dout) in modes.items():
-                    x = torch.from_numpy(xn).to(device, din)
-                    w = torch.from_numpy(wn).to(device, din)
-                    k1, k2 = (conv3x3_fwd(x, w, out_dtype=dout)
-                              for _ in range(2))
-                    ref = conv3x3_fwd_plain(x, w, dout)
-                    sync(device)
-                    scale = ref.float().abs().max().item()
-                    diff = (k1.float() - ref.float()).abs()
-                    err = diff.max().item()
-                    slack = CONV_F32_REL_TOL * scale
-                    if k1.dtype == torch.bfloat16:
-                        ok = within_bf16_ulp(k1, ref, slack)
-                        beyond = (diff > bf16_ulp(ref)).float().mean().item()
-                    else:
-                        ok, beyond = err <= slack, 0.0
-                    if name == "zero weights":
-                        ok = ok and not bool(k1.any())
-                    same = torch.equal(k1, k2)
-                    acc = worst[mode]
-                    acc[:] = [max(acc[0], err / scale if scale else 0.0),
-                              max(acc[1], err), max(acc[2], beyond)]
-                    if not (ok and same):
-                        bad.append((shape, name, mode, err, scale, same))
-                    checked += 1
-    for mode, (rel, err, beyond) in worst.items():
+    chk = profile_conv.check_cases(device)
+    for mode, w in chk["modes"].items():
         log("conv", f"conv3x3_fwd {mode} against plain: max|diff| "
-            f"{err:.3g} ({rel:.3g} of max|y|; bar {CONV_F32_REL_TOL:g}"
-            + (f" over one bf16 ulp; at most {beyond:.2g} of a case's "
-               f"values beyond one ulp" if mode == "bf16 -> bf16" else "")
-            + ")")
-    if bad:
-        raise AssertionError(f"conv3x3_fwd beyond its bars or not bit-equal"
-                             f" run to run: {bad[:6]}")
-    log("conv", f"conv3x3_fwd: {checked} cases within the bars, two runs "
-        f"bit-equal on every one")
+            f"{w['max_abs_err']:.3g} ({w['rel']:.3g} of max|y|; bar "
+            f"{profile_conv.REL_TOL:g}"
+            + (f" over one bf16 ulp; at most {w['beyond_ulp']:.2g} of a "
+               f"case's values beyond one ulp" if mode == "bf16 -> bf16"
+               else "") + ")")
+    log("conv", f"conv3x3_fwd: {chk['cases']} cases within the bars, two "
+        f"runs bit-equal on every one; bf16 inputs against a float64 plain "
+        f"version {chk['bf16 vs float64']['kernel']:.3g} of max|y| (the "
+        f"plain float32 version {chk['bf16 vs float64']['plain']:.3g})")
 
-    out = {key: {"max_abs_err": max(worst[m][1] for m in mds), "ms": None,
-                 "plain_ms": None, "library_ms": None,
-                 **conv_bound(PROBE_SHAPE, nbytes)}
-           for key, mds, nbytes in (
-               ("conv3x3_fwd", ["bf16 -> bf16"], 2),
-               ("conv3x3_fwd_f32", ["bf16 -> f32", "f32 -> f32"], 4))}
+    worst = {key: max(chk["modes"][m]["max_abs_err"] for m in mds)
+             for key, mds in (("conv3x3_fwd", ["bf16 -> bf16"]),
+                              ("conv3x3_fwd_f32", ["bf16 -> f32",
+                                                   "f32 -> f32"]))}
+    out = {key: {"max_abs_err": worst[key], "ms": None, "plain_ms": None,
+                 "library_ms": None,
+                 **profile_conv.conv_bound([PROBE_SHAPE], nbytes)}
+           for key, nbytes in (("conv3x3_fwd", 2), ("conv3x3_fwd_f32", 4))}
     if device.type != "cuda":
         return out
+    mma = tensor_core_counts("conv3x3_fwd")
+    bf16 = {k: v for k, v in mma.items() if "conv3x3_fwd_bf16" in k}
+    if mma and not (bf16 and all(v[0] > 0 for v in bf16.values())):
+        raise AssertionError(f"conv: bf16 entries without HMMA: {mma}")
+    log("conv", f"SASS (HMMA, HGMMA) per bf16 entry: "
+        f"{bf16 or 'no cuobjdump'}")
     for shape in RN50_SHAPES + [PROBE_SHAPE]:
-        _, xn, wn = conv_cases(*shape, seed=1)[0]
-        x, w = (torch.from_numpy(a).to(device, torch.bfloat16)
-                for a in (xn, wn))
-        # F.conv2d on the bf16 values as float32: with cuDNN's default TF32
-        # a product of two bf16 values is exact, so it computes the
-        # float32-out function
-        x32, w32 = x.float(), w.float()
-        kinds = [("conv3x3_fwd", None, 2)]
+        kinds = [("conv3x3_fwd", None)]
         if shape == PROBE_SHAPE:
-            kinds.append(("conv3x3_fwd_f32", torch.float32, 4))
-        b, c, h, wd = shape
-        flop = 18 * c * c * b * h * wd
-        for key, dout, nbytes in kinds:
-            def kernel():
-                return conv3x3_fwd(x, w, out_dtype=dout)
-
-            def plain():
-                return conv3x3_fwd_plain(x, w, dout)
-
-            def library():
-                if dout is None:
-                    return F.conv2d(x, w, padding=1)
-                return F.conv2d(x32, w32, padding=1)
-
-            dp1, dk1, dk2, dp2 = (device_ms(f, 20) for f in
-                                  (plain, kernel, kernel, plain))
-            dl = device_ms(library, 20)
-            lim = conv_bound(shape, nbytes)
+            kinds.append(("conv3x3_fwd_f32", torch.float32))
+        for key, dout in kinds:
+            t = profile_conv.time_one(device, shape, dout)
             if shape == PROBE_SHAPE:
-                out[key].update(ms=(dk1 + dk2) / 2, plain_ms=(dp1 + dp2) / 2,
-                                library_ms=dl)
+                out[key].update(ms=sum(t["ms"]) / 2,
+                                plain_ms=sum(t["plain_ms"]) / 2,
+                                library_ms=t["library_ms"])
             log("conv", f"{key} {shape} bf16 -> "
                 f"{'bf16' if dout is None else 'f32'}: device time per call "
-                f"(profiler) kernel {dk1:.4f}/{dk2:.4f} ms "
-                f"({flop / ((dk1 + dk2) / 2) / 1e9:.1f} TFLOP/s), plain "
-                f"{dp1:.4f}/{dp2:.4f} ms, F.conv2d (cuDNN) {dl:.4f} ms; "
-                f"bound {lim['bound_ms']:.5f} ms ({lim['bound_by']})")
+                f"(profiler) kernel {t['ms'][0]:.4f}/{t['ms'][1]:.4f} ms "
+                f"({t['tflops']:.1f} TFLOP/s), plain "
+                f"{t['plain_ms'][0]:.4f}/{t['plain_ms'][1]:.4f} ms, F.conv2d "
+                f"(cuDNN) {t['library_ms']:.4f} ms; bound "
+                f"{t['bound_ms']:.5f} ms ({t['bound_by']})")
     return out
 
 
@@ -1994,6 +1923,7 @@ def main() -> int:
                                                     write_coco_gt)
     from fhpe_tpu_torch.ops import _build
     from fhpe_tpu_torch.tools.train_parity import hrnet_fpd_cfgs, rn50_cfg
+    from fhpe_tpu_torch.utils.profiling import card_label
 
     device = torch.device("cuda", 0)
     label = card_label()

@@ -121,7 +121,8 @@ def load_library() -> ctypes.CDLL:
                                             ci, ci, ci, ci, ci, pp, pp, pp,
                                             ctypes.c_float, vp]
     lib.fhpe_branch_chain_train.restype = ci
-    lib.fhpe_conv3x3_fwd.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+    lib.fhpe_conv3x3_fwd.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                                     ctypes.POINTER(ci), vp]
     lib.fhpe_conv3x3_fwd.restype = ci
     lib.fhpe_cuda_error_string.argtypes = [ci]
     lib.fhpe_cuda_error_string.restype = ctypes.c_char_p

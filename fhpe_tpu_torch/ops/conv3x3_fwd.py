@@ -11,9 +11,11 @@ port's other conv kernels take them.  Two forms:
 
 * the plain PyTorch version, :func:`conv3x3_fwd_plain` (nine shifted-tap
   products accumulated in float32, as P2's ``conv_c`` does, rounded once);
-* the CUDA kernel ``ops/csrc/conv3x3_fwd.cu`` (an implicit GEMM, bf16 on
-  the tensor cores, float32 on the CUDA cores; two runs give the same
-  bits).
+* the CUDA kernel ``ops/csrc/conv3x3_fwd.cu``: for bfloat16 inputs an
+  implicit GEMM on the tensor cores (``mma.sync``) whose tiles are patches
+  of pixels staged once per chunk of input channels for all nine taps
+  (:func:`bf16_plan`), for float32 inputs an implicit GEMM on the CUDA
+  cores; two runs give the same bits.
 
 :func:`conv3x3_fwd` sends CUDA tensors to the kernel (it never falls back)
 and CPU tensors to the plain version.
@@ -21,7 +23,9 @@ and CPU tensors to the plain version.
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +40,78 @@ conv3x3_fwd_f32_launches = 0
 
 _CUDA_DTYPES = (torch.float32, torch.bfloat16)
 _CPU_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
+# The bf16 kernel (conv3x3_fwd_bf16 in conv3x3_fwd.cu, whose compile-time
+# constants kTileM, kSlots, kChunk, kPitch and kMaxPatch these are; a test
+# holds them to the source).  A block owns BF16_TILE_M output channels by
+# at most BF16_SLOTS output pixels; each chunk of BF16_CHUNK input channels
+# of the tile's patch (the pixels with their one-pixel halo, at most
+# BF16_MAX_PATCH) is staged pixel-major at BF16_PITCH values per pixel,
+# beside the chunk's weights as 9 x BF16_TILE_M rows of BF16_PITCH.
+BF16_TILE_M = 64
+BF16_SLOTS = 128
+BF16_CHUNK = 32
+BF16_PITCH = 40
+BF16_MAX_PATCH = 256
+BF16_WEIGHT_BYTES = 9 * BF16_TILE_M * BF16_PITCH * 2
+# The plan's cost of a tile beside its BF16_SLOTS pixel slots of MMAs: the
+# weights' staging, and per patch pixel the x staging (a chunk of weights
+# is 18,432 values, of x 32 per patch pixel).
+TILE_COST = 48
+PATCH_COST = 0.25
+
+
+class Bf16Plan(NamedTuple):
+    """How the bf16 kernel tiles one call, computed here only: the kernel
+    takes it as its ``Plan`` struct, whose fields are these ints in this
+    order.  A tile is ``rows`` x ``cols`` output pixels of ``samples``
+    consecutive samples (more than one only when a tile is a whole image);
+    its patch is ``samples`` blocks of ``rows + 2`` rows of ``patch_w`` =
+    ``cols + 2`` pixels, ``patch`` in all; ``bands`` x ``col_tiles`` tiles
+    cover a sample, ``tiles`` the batch (the grid's x); ``smem`` is a
+    block's dynamic shared memory in bytes."""
+    samples: int
+    rows: int
+    cols: int
+    patch_w: int
+    patch: int
+    bands: int
+    col_tiles: int
+    tiles: int
+    smem: int
+
+
+def plan_smem(patch: int) -> int:
+    """A block's bytes: the chunk's weights, its x patch and the patch's
+    pixel table (one int per pixel)."""
+    return BF16_WEIGHT_BYTES + patch * (2 * BF16_PITCH + 4)
+
+
+@functools.lru_cache(maxsize=None)
+def bf16_plan(b: int, h: int, w: int) -> Bf16Plan:
+    """The bf16 kernel's tiles of a call on (b, C, h, w), for any C: of
+    every tile shape within ``BF16_SLOTS`` pixels and ``BF16_MAX_PATCH``
+    patch pixels, the one whose tiles cost least (``TILE_COST`` + the slots +
+    ``PATCH_COST`` per patch pixel, per tile); of equal costs the last in
+    order of columns, rows and samples, so the widest (longer runs of
+    pixels to load and store)."""
+    best = None
+    for cols in range(1, min(w, BF16_SLOTS) + 1):
+        for rows in range(1, min(h, BF16_SLOTS // cols) + 1):
+            whole = rows == h and cols == w
+            most = min(b, BF16_SLOTS // (rows * cols)) if whole else 1
+            for samples in range(1, most + 1):
+                patch = samples * (rows + 2) * (cols + 2)
+                if patch > BF16_MAX_PATCH:
+                    break
+                tiles = -(-b // samples) * -(-h // rows) * -(-w // cols)
+                cost = tiles * (TILE_COST + BF16_SLOTS + PATCH_COST * patch)
+                if best is None or cost <= best[0]:
+                    best = (cost, samples, rows, cols)
+    _, samples, rows, cols = best
+    patch = samples * (rows + 2) * (cols + 2)
+    bands, col_tiles = -(-h // rows), -(-w // cols)
+    return Bf16Plan(samples, rows, cols, cols + 2, patch, bands, col_tiles,
+                    -(-b // samples) * bands * col_tiles, plan_smem(patch))
 
 
 def _check(x: torch.Tensor, weight: torch.Tensor, bias, stride, padding,
@@ -97,20 +173,23 @@ def _fwd_kernel(x: torch.Tensor, weight: torch.Tensor,
     if x.dtype not in _CUDA_DTYPES:
         raise ValueError(f"conv3x3_fwd kernel takes float32 or bfloat16, "
                          f"got {x.dtype}")
-    if x.numel() >= 2 ** 31:
+    if max(x.numel(), weight.numel()) >= 2 ** 31:
         raise ValueError(f"conv3x3_fwd kernel: shape {tuple(x.shape)} "
                          f"exceeds 32-bit indexing")
     b, c, h, w = x.shape
     y = torch.empty((b, c, h, w), dtype=out_dtype, device=x.device)
     if x.numel() == 0:
         return y
+    plan = None
+    if x.dtype == torch.bfloat16:
+        plan = (ctypes.c_int * len(Bf16Plan._fields))(*bf16_plan(b, h, w))
     lib = _build.load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.fhpe_conv3x3_fwd(
             x.data_ptr(), weight.data_ptr(), y.data_ptr(), b, c, h, w,
             int(x.dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), stream)
+            int(out_dtype == torch.bfloat16), plan, stream)
     _build.check(lib, code, "conv3x3_fwd kernel launch")
     if out_dtype == torch.bfloat16:
         conv3x3_fwd_launches += 1

@@ -24,6 +24,12 @@ PROBE_SHAPE = (64, 32, 64, 48)
 # pixel tile, odd sides.
 EDGE_SHAPES = [(1, 8, 1, 1), (3, 40, 9, 6), (1, 64, 64, 48), (2, 8, 3, 130),
                (3, 8, 5, 7)]
+# Wide cases for the bf16 kernel's tiles: rows wider than one column tile
+# (W = 200, 258), odd W, channels that fill no 16- or 32-channel step (24,
+# 72) or no 8-channel vector (20, 12: the weights load element by
+# element), several whole images per tile (5 x 3x3), and C = 1024.
+WIDE_SHAPES = [(2, 24, 7, 200), (3, 72, 11, 13), (1, 20, 6, 258),
+               (5, 12, 3, 3), (2, 1024, 4, 5)]
 
 Case = Tuple[str, np.ndarray, np.ndarray]
 

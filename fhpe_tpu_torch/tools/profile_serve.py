@@ -25,7 +25,6 @@ from __future__ import annotations
 import argparse
 import copy
 import json
-import subprocess
 import time
 from collections import Counter
 from pathlib import Path
@@ -37,7 +36,7 @@ from ..config import load_config
 from ..models import get_pose_net
 from ..serve import Predictor
 from ..utils.dtype import autocast
-from ..utils.profiling import busy_ms, device_events, device_ms
+from ..utils.profiling import busy_ms, card_label, device_events, device_ms
 
 REPO = Path(__file__).resolve().parents[2]
 STUDENT = REPO / "experiments/mpii/hourglass/hg4_128_student.yaml"
@@ -73,13 +72,6 @@ def kernel_group(name: str) -> str:
         if key in name:
             return group
     return "other"
-
-
-def card_label() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def make_predictor(cfg_path: Path, seed: int) -> Predictor:

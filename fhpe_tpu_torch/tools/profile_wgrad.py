@@ -29,10 +29,7 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
 import statistics
-import subprocess
-import tempfile
 import time
 from collections import Counter
 from pathlib import Path
@@ -43,7 +40,8 @@ from ..ops import _build
 from ..ops.conv_wgrad import bf16_plan, conv3x3_wgrad, conv3x3_wgrad_plain
 from ..ops.conv_wgrad_cases import (EDGE_SHAPES, STEP_SHAPES, WIDE_SHAPES,
                                     planted_wgrad_cases)
-from ..utils.profiling import device_ms
+from ..utils.profiling import (card_label, device_ms, ptxas_report,
+                               tensor_core_counts)
 from .train_parity import cudnn_wgrad
 
 # Card peaks for the bound (NVIDIA H100 SXM data sheet, dense).
@@ -58,50 +56,6 @@ TIMED = (32, 64, 64, 64)   # the hourglass student's 64x64 conv2s, batch 32
 # max|dW| (2.4e-6 against a float64 plain version, against which the plain
 # float32 version itself is 7.6e-7 off), so one bar holds both.
 REL_TOL = 1e-5
-
-
-def card_label() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def ptxas_report() -> list:
-    """``-Xptxas -v`` lines (entry, registers, shared memory, spills) of
-    ``conv_wgrad.cu`` compiled with the build's flags."""
-    src = _build._CSRC / "conv_wgrad.cu"
-    with tempfile.TemporaryDirectory() as tmp:
-        out = subprocess.run(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
-             "-o", str(Path(tmp) / "conv_wgrad.o"), str(src)],
-            capture_output=True, text=True, check=True, timeout=600)
-    lines = (out.stdout + out.stderr).splitlines()
-    keep = ("Compiling entry", "Used", "spill")
-    return [ln.strip() for ln in lines if any(k in ln for k in keep)]
-
-
-def tensor_core_counts() -> dict:
-    """{entry: (HMMA, HGMMA) instructions} of every wgrad entry in the built
-    library's SASS, or {} when the toolkit has no cuobjdump."""
-    tool = Path(_build._nvcc()).with_name("cuobjdump")
-    if not tool.is_file():
-        return {}
-    sass = subprocess.run([str(tool), "-sass", str(_build.build())],
-                          capture_output=True, text=True, check=True,
-                          timeout=600).stdout
-    counts, name = {}, None
-    for ln in sass.splitlines():
-        m = re.search(r"Function : (\S+)", ln)
-        if m:
-            name = m.group(1) if "wgrad" in m.group(1) else None
-            if name:
-                counts[name] = [0, 0]
-        elif name:
-            counts[name][0] += bool(re.search(r"\bHMMA\b", ln))
-            counts[name][1] += bool(re.search(r"\bHGMMA\b", ln))
-    return {k: tuple(v) for k, v in counts.items()}
 
 
 def check_cases(device, shapes=None) -> dict:
@@ -282,8 +236,8 @@ def main(argv=None) -> None:
     result = {"card": card_label(), "kind": torch.cuda.get_device_name(0)}
     print(result["card"], flush=True)
     _build.load_library()
-    result["ptxas"] = ptxas_report()
-    result["tensor_core_instructions"] = tensor_core_counts()
+    result["ptxas"] = ptxas_report("conv_wgrad.cu")
+    result["tensor_core_instructions"] = tensor_core_counts("wgrad")
     for ln in result["ptxas"]:
         print(ln, flush=True)
     print("SASS (HMMA, HGMMA):", result["tensor_core_instructions"],

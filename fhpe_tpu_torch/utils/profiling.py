@@ -1,4 +1,5 @@
-"""Device time read from ``torch.profiler`` traces (CUDA only).
+"""Device time read from ``torch.profiler`` traces, and what the card's
+toolchain says about the built kernels (CUDA only).
 
 The port's serve step is bound by the host's dispatch (``PERF.md``), so
 CUDA events around a loop of calls time the host, not the device.  These
@@ -9,6 +10,9 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import subprocess
+import tempfile
 from pathlib import Path
 from typing import Callable, List
 
@@ -68,3 +72,51 @@ def busy_ms(events: List[dict]) -> float:
             total += hi - max(lo, end)
             end = hi
     return total / 1e3
+
+
+def card_label() -> str:
+    """``nvidia-smi``'s name and power limit of the first card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(source: str) -> list:
+    """``-Xptxas -v`` lines (entry, registers, shared memory, spills) of
+    ``ops/csrc/<source>`` compiled with the build's flags."""
+    from ..ops import _build
+    src = _build._CSRC / source
+    with tempfile.TemporaryDirectory() as tmp:
+        out = subprocess.run(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+             "-o", str(Path(tmp) / "kernel.o"), str(src)],
+            capture_output=True, text=True, check=True, timeout=600)
+    lines = (out.stdout + out.stderr).splitlines()
+    keep = ("Compiling entry", "Used", "spill")
+    return [ln.strip() for ln in lines if any(k in ln for k in keep)]
+
+
+def tensor_core_counts(match: str) -> dict:
+    """{entry: (HMMA, HGMMA) instructions} of every entry of the built
+    library whose name holds ``match``, from its SASS, or {} when the
+    toolkit has no cuobjdump."""
+    from ..ops import _build
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    if not tool.is_file():
+        return {}
+    sass = subprocess.run([str(tool), "-sass", str(_build.build())],
+                          capture_output=True, text=True, check=True,
+                          timeout=600).stdout
+    counts, name = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = m.group(1) if match in m.group(1) else None
+            if name:
+                counts[name] = [0, 0]
+        elif name:
+            counts[name][0] += bool(re.search(r"\bHMMA\b", ln))
+            counts[name][1] += bool(re.search(r"\bHGMMA\b", ln))
+    return {k: tuple(v) for k, v in counts.items()}

@@ -260,3 +260,206 @@ def test_which_models_route_to_the_kernel(monkeypatch, name, make_cfg, hw,
     assert len(calls) == per_forward
     (out[-1] if isinstance(out, list) else out).sum().backward()
     assert len(calls) == per_forward
+
+
+# -- the bf16 kernel's tile plan and index math (ops/csrc/conv3x3_fwd.cu) ----
+
+from fhpe_tpu_torch.ops.conv3x3_fwd_cases import (  # noqa: E402
+    EDGE_SHAPES, PROBE_SHAPE, RN50_SHAPES, WIDE_SHAPES)
+
+CU_SRC = os.path.join(REPO, "fhpe_tpu_torch", "ops", "csrc", "conv3x3_fwd.cu")
+SMEM_LIMIT = 232448         # an H100's most shared memory a block
+THREADS = 256               # kThreads of the bf16 kernel
+
+
+def _tile_origin(plan, t):
+    """(first sample, first row, first column) of tile ``t``, as the
+    kernel decodes blockIdx.x."""
+    cc, rest = t % plan.col_tiles, t // plan.col_tiles
+    return ((rest // plan.bands) * plan.samples,
+            (rest % plan.bands) * plan.rows, cc * plan.cols)
+
+
+def _slot_pixels(plan, b, h, w):
+    """For every tile and slot: the slot's output pixel (sample, y, x) and
+    whether the kernel writes it, as the kernel's epilogue maps them."""
+    t = np.arange(plan.tiles)[:, None]
+    n = np.arange(cf.BF16_SLOTS)[None, :]
+    cc, rest = t % plan.col_tiles, t // plan.col_tiles
+    b0 = (rest // plan.bands) * plan.samples
+    y0, x0 = (rest % plan.bands) * plan.rows, cc * plan.cols
+    tile_px = plan.rows * plan.cols
+    s, r = n // tile_px, n % tile_px
+    bb, yy, xx = b0 + s, y0 + r // plan.cols, x0 + r % plan.cols
+    ok = (n < plan.samples * tile_px) & (bb < b) & (yy < h) & (xx < w)
+    return bb, yy, xx, ok
+
+
+def _check_plan(b, c, h, w):
+    plan = cf.bf16_plan(b, h, w)
+    assert plan.patch_w == plan.cols + 2
+    assert plan.patch == plan.samples * (plan.rows + 2) * plan.patch_w
+    assert plan.patch <= cf.BF16_MAX_PATCH
+    assert plan.samples * plan.rows * plan.cols <= cf.BF16_SLOTS
+    assert plan.samples == 1 or (plan.rows, plan.cols) == (h, w)
+    assert plan.smem == cf.plan_smem(plan.patch) <= SMEM_LIMIT
+    bb, yy, xx, ok = _slot_pixels(plan, b, h, w)
+    hits = np.zeros(b * h * w, np.int64)
+    np.add.at(hits, ((bb * h + yy) * w + xx)[ok], 1)
+    assert (hits == 1).all(), (b, c, h, w, plan)
+
+
+@pytest.mark.parametrize("shape", RN50_SHAPES + [PROBE_SHAPE] + EDGE_SHAPES
+                         + WIDE_SHAPES)
+def test_bf16_plan_covers_every_pixel_once(shape):
+    """Every output pixel of the case shapes belongs to exactly one tile
+    slot that the kernel writes; the patch, the slots and the shared
+    memory stay within the kernel's limits."""
+    _check_plan(*shape)
+
+
+@pytest.mark.parametrize("h,b", [(1, 1), (3, 2), (8, 3), (17, 1)])
+def test_bf16_plan_fits_every_width(h, b):
+    """The same for every W from 1 to 258."""
+    for w in range(1, 259):
+        _check_plan(b, 8, h, w)
+
+
+def test_bf16_plan_is_the_kernels_struct():
+    """The kernel takes the host's plan as its ``Plan`` struct, ints in the
+    order of ``Bf16Plan``'s fields; its constants and its shared-memory
+    formula are the host's."""
+    import re
+    src = open(CU_SRC).read()
+    body = re.search(r"struct Plan \{(.*?)\};", src, re.S).group(1)
+    assert tuple(re.findall(r"\b([a-z_]+)\s*[,;]", body)) == \
+        cf.Bf16Plan._fields
+    ints = re.search(r"constexpr int kPlanInts = (\d+);", src).group(1)
+    assert int(ints) == len(cf.Bf16Plan._fields)
+    for name, value in (("kTileM", cf.BF16_TILE_M), ("kSlots", cf.BF16_SLOTS),
+                        ("kChunk", cf.BF16_CHUNK), ("kPitch", cf.BF16_PITCH),
+                        ("kMaxPatch", cf.BF16_MAX_PATCH),
+                        ("kThreads", THREADS)):
+        got = re.search(rf"constexpr int {name} = (\d+);", src).group(1)
+        assert int(got) == value, name
+    assert "kWeightBytes = 9 * kTileM * kPitch * 2;" in src
+    assert cf.BF16_WEIGHT_BYTES == 9 * cf.BF16_TILE_M * cf.BF16_PITCH * 2
+    assert "kWeightBytes + p.patch * (kPitch * 2 + 4)" in src
+
+
+def _byte_perm(a, b, sel):
+    """CUDA's ``__byte_perm`` on words given as their four bytes."""
+    src = list(a) + list(b)
+    return [src[(sel >> (4 * i)) & 7] for i in range(4)]
+
+
+def _weight_transpose():
+    """{(tap, channel of 8): value e of the 72-value unit} as the kernel's
+    store() assembles it: register k holds values 2k (low half) and 2k + 1
+    (high half), each 16-bit half two tagged bytes, and the byte permutes
+    of the source pick them."""
+    words = [[(2 * k, 0), (2 * k, 1), (2 * k + 1, 0), (2 * k + 1, 1)]
+             for k in range(36)]
+    out = {}
+    for tap in range(9):
+        for k in range(4):
+            e0 = 2 * k * 9 + tap
+            e1 = e0 + 9
+            sel = ((0x0032 if e0 & 1 else 0x0010)
+                   | (0x7600 if e1 & 1 else 0x5400))
+            got = _byte_perm(words[e0 >> 1], words[e1 >> 1], sel)
+            for half in range(2):
+                lo, hi = got[2 * half], got[2 * half + 1]
+                assert lo[0] == hi[0] and (lo[1], hi[1]) == (0, 1)
+                out[(tap, 2 * k + half)] = lo[0]
+    return out
+
+
+def _emulate_bf16_kernel(x, wt):
+    """The bf16 kernel's index math in float64: the plan, the patch's pixel
+    table, each chunk's pixel-major x staging and transposed weight
+    staging (through the byte permutes), the ldmatrix row addresses with
+    each tap's row offset, and the epilogue's slot -> pixel map.  Returns
+    y and how many times each output was written."""
+    b, c, h, w = x.shape
+    plan = cf.bf16_plan(b, h, w)
+    hw, pitch, tm = h * w, cf.BF16_PITCH, cf.BF16_TILE_M
+    xf, wf = x.reshape(-1), wt.reshape(-1)
+    y = torch.zeros(b * c * hw, dtype=torch.float64)
+    writes = torch.zeros(b * c * hw, dtype=torch.int64)
+    table = _weight_transpose()
+    # trans[tap, k8]: the unit's value stored at (tap, channel k8)
+    trans = torch.tensor([[table[(tap, k8)] for k8 in range(8)]
+                          for tap in range(9)])[:, None, :]
+    k8 = torch.arange(8)[None, :]
+    sample_patch = (plan.rows + 2) * plan.patch_w
+    tile_px = plan.rows * plan.cols
+    n_valid = plan.samples * tile_px
+    q = torch.arange(plan.patch)
+    n = torch.arange(cf.BF16_SLOTS)
+    # the B rows: slot n reads patch pixel pos(n) + the tap's offset
+    s_n, r_n = n // tile_px, n % tile_px
+    pos = torch.where(n < n_valid, s_n * sample_patch
+                      + (r_n // plan.cols) * plan.patch_w
+                      + r_n % plan.cols, torch.zeros_like(n))
+    tid = torch.arange(THREADS)
+    o_l, gq = tid >> 2, tid & 3
+    for t in range(plan.tiles):
+        b0, y0, x0 = _tile_origin(plan, t)
+        s, r = q // sample_patch, q % sample_patch
+        yy, xx = y0 - 1 + r // plan.patch_w, x0 - 1 + r % plan.patch_w
+        bb = b0 + s
+        inside = (bb < b) & (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+        pix = torch.where(inside, bb * c * hw + yy * w + xx,
+                          torch.full_like(q, -1))
+        for m0 in range(0, c, tm):
+            acc = torch.zeros(tm, cf.BF16_SLOTS, dtype=torch.float64)
+            for c0 in range(0, c, cf.BF16_CHUNK):
+                # unit u = g P + q: 8 channels of patch pixel q
+                xs = torch.zeros(plan.patch, pitch, dtype=torch.float64)
+                for g in range(4):
+                    for k in range(8):
+                        ch = c0 + 8 * g + k
+                        ok = (pix >= 0) & (ch < c)
+                        src = torch.where(ok, pix + ch * hw,
+                                          torch.zeros_like(pix))
+                        xs[:, 8 * g + k] = torch.where(
+                            ok, xf[src], torch.zeros_like(xf[src]))
+                # thread (o_l, gq): 72 values of 8 channels x 9 taps
+                o = (m0 + o_l)[None, :, None]
+                ch0 = (c0 + 8 * gq)[None, :, None]
+                ok = (o < c) & (ch0 + trans // 9 < c)
+                src = torch.where(ok, (o * c + ch0) * 9 + trans,
+                                  torch.zeros_like(ok, dtype=torch.int64))
+                ws = torch.zeros(9, tm, pitch, dtype=torch.float64)
+                ws[:, o_l[:, None], (8 * gq)[:, None] + k8] = torch.where(
+                    ok, wf[src], torch.zeros_like(wf[src]))
+                for tap in range(9):
+                    rows = xs[pos + (tap // 3) * plan.patch_w + tap % 3]
+                    k = cf.BF16_CHUNK
+                    acc += ws[tap, :, :k] @ rows[:, :k].T
+            bb, yy, xx = b0 + s_n, y0 + r_n // plan.cols, x0 + r_n % plan.cols
+            ok = (n < n_valid) & (bb < b) & (yy < h) & (xx < w)
+            for o in range(m0, min(c, m0 + tm)):
+                dst = (bb * c + o) * hw + yy * w + xx
+                y[dst[ok]] = acc[o - m0, ok]
+                writes[dst[ok]] += 1
+    return y.view(b, c, h, w), writes
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES[:2] + EDGE_SHAPES[3:]
+                         + WIDE_SHAPES)
+def test_bf16_kernel_emulation_matches_plain(shape):
+    """The emulated kernel against the plain version in float64 on every
+    planted case: each output written exactly once, within float64
+    rounding of the sums, zero weights giving exactly 0."""
+    for name, x, wt in conv_cases(*shape, seed=sum(shape)):
+        xt, wtt = torch.from_numpy(x).double(), torch.from_numpy(wt).double()
+        got, writes = _emulate_bf16_kernel(xt, wtt)
+        assert (writes == 1).all(), name
+        ref = cf.conv3x3_fwd_plain(xt, wtt)
+        scale = ref.abs().max().item()
+        if name == "zero weights":
+            assert not got.any()
+            continue
+        assert (got - ref).abs().max().item() <= F64_REL_TOL * scale, name
