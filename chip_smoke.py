@@ -49,7 +49,7 @@ Phases; any failure raises and exits non-zero:
    port on the CPU;
 7. teacher serve: one request of 32 crops with the checks of phase 5;
 8. W32 serve (He-scale weights, BN statistics from one batch) with the
-   checks of phase 5;
+   checks of phase 5, and P5's device ms per chunk (profiler);
 9. W32 float32 parity, as phase 6;
 10. COCO evaluation on synthetic ground truth (64 images of 1-4 people):
     (a) planted detections: per image the keep-list equals the host
@@ -84,16 +84,18 @@ Phases; any failure raises and exits non-zero:
     plain versions on every W32 and W48 chain shape at batch 32 and on
     edge cases (B = 1 and 3, C = 8 and 40, 1x1 and 3x130 images), bf16
     and float32, TF32 off: y and the batch statistics within the bars of
-    ``CHAIN_*``, two runs bit-equal; then the device time of each entry,
-    its plain version and the same chain as unfused modules (cuDNN);
+    ``tools/profile_chain.py``, two runs bit-equal; HMMA in the bf16
+    entries' SASS; then the device time of each entry on the eight shapes
+    in turns with the same chain as unfused modules (cuDNN), and its plain
+    version;
 16. ``BranchChainFn``'s gradients against autograd through the plain
     chain, float32, at one W32 chain shape;
 17. the FPD W48 -> W32 train step at full width (bf16, batch 32): per
     step 26 P5e, 26 P5t, 212 P4 and 2 decode launches, finite losses
     falling over 10 steps on one batch, warm train images/s with P5 and
     with every chain unrouted, a profile of each (idle share, device ops
-    per step, kernel ms by group) and one step's 52 chain forwards on P5
-    against the unfused modules;
+    per step, kernel ms by group, P5's device ms per step) and one step's
+    52 chain forwards on P5 against the unfused modules;
 18. float32 FPD W48 -> W32 step parity (TF32 off, batch 2): card against
     CPU at phase 13's bars, card with P5 against card with every chain
     unrouted at the bars of ``HRNET_P5_STEP_BARS``;
@@ -281,20 +283,11 @@ KERNELS = {
     "conv3x3_fwd_f32": {"source": "fhpe_tpu_torch/ops/csrc/conv3x3_fwd.cu",
                         "replaces": "scripts/probe/pallas_conv_probe.py:40"},
 }
-# P5 (a whole BasicBlock chain) against its plain version on the card,
-# TF32 off.  In bf16 both round at four places per block and sum each conv
-# in another order, so where an exact value lies near a rounding boundary
-# the two round apart by one ulp, and that carries into the next convs:
-# y is held to CHAIN_Y_TOL of max|y| (one bf16 ulp is 2^-8 to 2^-7 of it)
-# and the mean |diff| to CHAIN_Y_MEAN_TOL of max|y|; the batch means to
-# CHAIN_STATS_TOL of sqrt(var + eps), the variances to CHAIN_STATS_TOL of
-# var + eps.  float32 differs only in the order of the sums.  Measured on
-# an H100 over the 13 chains: bf16 max 1.09e-2, mean 5.2e-4, stats
-# 1.5e-3; float32 max 1.9e-6, mean 1.5e-7, stats 7.8e-7.
-CHAIN_Y_TOL = {"bfloat16": 2.0 ** -5, "float32": 2e-5}
-CHAIN_Y_MEAN_TOL = {"bfloat16": 1e-3, "float32": 2e-6}
-CHAIN_STATS_TOL = {"bfloat16": 1e-2, "float32": 1e-5}
-CHAIN_TIMED = (32, 32, 64, 48)   # W32's branch 0 at batch 32, 4 blocks
+# kernel group of P5's launches in tools/profile_serve.py::KERNEL_GROUPS
+P5_GROUP = "branch chain kernel (P5)"
+# P5 (a whole BasicBlock chain) against its plain version on the card:
+# the bars of fhpe_tpu_torch/tools/profile_chain.py (Y_TOL, Y_MEAN_TOL,
+# STATS_TOL), timed at its TIMED shape, W32's branch 0 at batch 32.
 # BranchChainFn's gradients against autograd through the plain version,
 # float32, TF32 off, at one W32 chain shape: relative L2 per tensor.  The
 # kernel's forward differs from the plain one by ~1e-6 relative, which
@@ -646,6 +639,17 @@ def phase_serve(phase, cfg, model, device, requests, seed, totals,
     check_kernel_path_on_chunk(phase, p, *max(data, key=lambda d: len(d[0])))
     check_bf16_flow(phase, p, data[0][0])
 
+    if label and per_chunk and device.type == "cuda":
+        from fhpe_tpu_torch.tools.profile_serve import kernel_group
+        from fhpe_tpu_torch.utils.profiling import device_events
+        chunk = make_requests(cfg, p.batch_size, seed + 98)
+        events = device_events(lambda: p.predict_crops(*chunk), 2)
+        p5 = sum(float(e["dur"]) for e in events if e["cat"] == "kernel"
+                 and kernel_group(e["name"]) == P5_GROUP) / 2e3
+        busy = sum(float(e["dur"]) for e in events) / 2e3
+        log(phase, f"P5 device time per chunk of {p.batch_size} crops: "
+            f"{p5:.3f} ms of {busy:.3f} ms of device work ({per_chunk} P5e "
+            f"calls, flip test on, profiler)")
     if label:
         crops, centers, scales = make_requests(cfg, 8 * p.batch_size,
                                                seed + 99)
@@ -1055,178 +1059,57 @@ def phase_f32_train_parity(device) -> None:
 
 # -- HRNet training: P5 ---------------------------------------------------------
 
-def chain_tensors(shape, blocks, seed, device):
-    """A chain input and parameters from ``branch_chain_cases``, float32."""
-    import torch
-    from fhpe_tpu_torch.ops.branch_chain_cases import (chain_input,
-                                                       chain_params)
-    b, c, h, w = shape
-    p = chain_params(c, blocks, seed)
-    x = torch.from_numpy(chain_input(b, c, h, w, seed + 1)).to(device)
-    ws, gs, bs = (list(torch.from_numpy(p[k]).to(device).unbind(0))
-                  for k in ("weights", "gammas", "betas"))
-    return x, ws, gs, bs
-
-
-def unfused_chain(x, ws, gs, bs, means, variances):
-    """The same chain as PyTorch modules run one by one (cuDNN convs,
-    BatchNorm, ReLU, adds): the yardstick P5 is timed against."""
-    import torch
-    from fhpe_tpu_torch.models.common import BasicBlock
-    from fhpe_tpu_torch.models.pose_hrnet import BranchChain
-    c = x.shape[1]
-    chain = BranchChain(*[BasicBlock(c, c) for _ in range(len(ws) // 2)])
-    chain.fused = False
-    convs = [cv for b in chain for cv in (b.conv1, b.conv2)]
-    bns = [bn for b in chain for bn in (b.bn1, b.bn2)]
-    with torch.no_grad():
-        for i, (cv, bn) in enumerate(zip(convs, bns)):
-            cv.weight.copy_(ws[i])
-            bn.weight.copy_(gs[i])
-            bn.bias.copy_(bs[i])
-            bn.running_mean.copy_(means[i])
-            bn.running_var.copy_(variances[i])
-    return chain.to(x.device)
-
-
-def chain_bound(shape, blocks, train: bool) -> dict:
-    """Least time for one bf16 chain call: 2 nb convs of 18 C^2 operations
-    per pixel at the bf16 peak, or its bytes: x read, the weights read, y
-    written (train: every block output and every pre-BN conv output, which
-    the kernel returns for the backward)."""
-    b, c, h, w = shape
-    act = 2 * b * c * h * w
-    written = (3 * blocks if train else 1) * act
-    nbytes = act + written + 2 * blocks * (2 * 9 * c * c + 4 * 2 * c)
-    return bound(nbytes, 2 * blocks * 18 * c * c * b * h * w, BF16_OPS_PER_S)
-
-
 def phase_chain_kernels(device) -> dict:
     """P5e and P5t against their plain versions on every W32/W48 chain
     shape at batch 32 and on edge cases, bf16 and float32, TF32 off; two
-    runs bit-equal; then device times of each entry, its plain version and
-    the unfused module chain (cuDNN)."""
-    import torch
-    from fhpe_tpu_torch.ops import branch_chain as bc
-    from fhpe_tpu_torch.ops.branch_chain_cases import (BLOCKS, EDGE_CASES,
-                                                       W32_SHAPES, W48_SHAPES)
-    from fhpe_tpu_torch.tools.train_parity import tf32_off
-    from fhpe_tpu_torch.utils.dtype import autocast
-    from fhpe_tpu_torch.utils.profiling import device_ms
+    runs bit-equal; HMMA in the bf16 entries' SASS; then device times of
+    each entry against the unfused module chain (cuDNN) on the eight
+    shapes, and its plain version (``fhpe_tpu_torch/tools/
+    profile_chain.py``)."""
+    from fhpe_tpu_torch.ops.branch_chain_cases import W32_SHAPES, W48_SHAPES
+    from fhpe_tpu_torch.tools import profile_chain as pc
+    from fhpe_tpu_torch.utils.profiling import tensor_core_counts
 
-    cases = [(*s, BLOCKS) for s in W32_SHAPES + W48_SHAPES] + EDGE_CASES
-    # per (entry, dtype): max|diff| / max|y|, mean|diff| / max|y|, stats,
-    # max|diff|
-    worst = {(e, dt): [0.0, 0.0, 0.0, 0.0] for e in ("eval", "train")
-             for dt in CHAIN_Y_TOL}
-    bad = []
-
-    def diff(got, ref):
-        scale = max(ref.abs().max().item(), 1e-30)
-        d = (got.float() - ref.float()).abs()
-        return d.max().item() / scale, d.mean().item() / scale, d.max().item()
-
-    with tf32_off():
-        for k, (b, c, h, w, nb) in enumerate(cases):
-            x, ws, gs, bs = chain_tensors((b, c, h, w), nb, 40 + k, device)
-            # running statistics that match the data: the batch statistics
-            # of the float32 chain on this input
-            ref32 = bc.branch_chain_train_plain(x, ws, gs, bs)
-            means, variances = ref32.mean.unbind(0), ref32.var.unbind(0)
-            for name, dt in (("bfloat16", torch.bfloat16),
-                             ("float32", torch.float32)):
-                xd, wd = x.to(dt), [t.to(dt) for t in ws]
-                e1, e2 = (bc.branch_chain_eval(xd, wd, gs, bs, means,
-                                               variances) for _ in range(2))
-                ep = bc.branch_chain_eval_plain(xd, wd, gs, bs, means,
-                                                variances)
-                t1, t2 = (bc.branch_chain_train(xd, wd, gs, bs)
-                          for _ in range(2))
-                tp = bc.branch_chain_train_plain(xd, wd, gs, bs)
-                sync(device)
-                ey = diff(e1, ep)
-                ty = diff(t1.y, tp.y)
-                sd = torch.sqrt(tp.var + bc.BN_EPS)
-                st = max(((t1.mean - tp.mean).abs() / sd).max().item(),
-                         ((t1.var - tp.var).abs() / sd.square()).max().item())
-                same = (torch.equal(e1, e2) and torch.equal(t1.y, t2.y)
-                        and torch.equal(t1.mean, t2.mean)
-                        and torch.equal(t1.var, t2.var))
-                for entry, (mx, mean, ab), stats in (("eval", ey, 0.0),
-                                                     ("train", ty, st)):
-                    acc = worst[(entry, name)]
-                    acc[:] = [max(acc[0], mx), max(acc[1], mean),
-                              max(acc[2], stats), max(acc[3], ab)]
-                    if not (same and mx <= CHAIN_Y_TOL[name]
-                            and mean <= CHAIN_Y_MEAN_TOL[name]
-                            and stats <= CHAIN_STATS_TOL[name]):
-                        bad.append((entry, name, (b, c, h, w, nb), mx, mean,
-                                    stats, same))
-    for (entry, name), (mx, mean, stats, _) in worst.items():
-        log("chain", f"P5 {entry} {name} against plain on {len(cases)} "
+    chk = pc.check_cases(device)
+    for key, (mx, mean, stats, _) in chk["worst"].items():
+        entry, name = key.split()
+        log("chain", f"P5 {entry} {name} against plain on {chk['cases']} "
             f"chains: max|diff| {mx:.3g} of max|y| (bar "
-            f"{CHAIN_Y_TOL[name]:.3g}), mean|diff| {mean:.3g} (bar "
-            f"{CHAIN_Y_MEAN_TOL[name]:.3g})"
-            + (f", batch stats {stats:.3g} (bar {CHAIN_STATS_TOL[name]:.3g})"
+            f"{pc.Y_TOL[name]:.3g}), mean|diff| {mean:.3g} (bar "
+            f"{pc.Y_MEAN_TOL[name]:.3g})"
+            + (f", batch stats {stats:.3g} (bar {pc.STATS_TOL[name]:.3g})"
                if entry == "train" else ""))
-    if bad:
-        raise AssertionError(f"P5 beyond its bars or not bit-equal run to "
-                             f"run: {bad[:6]}")
     log("chain", "P5 eval and train: two runs bit-equal on every case")
 
     out = {}
-    for entry in ("eval", "train"):
-        err = max(worst[(entry, n)][3] for n in CHAIN_Y_TOL)
+    for entry in pc.ENTRIES:
+        err = max(v[3] for k, v in chk["worst"].items()
+                  if k.startswith(entry))
         out[f"branch_chain_{entry}"] = {
             "max_abs_err": err, "ms": None, "plain_ms": None,
             "library_ms": None,
-            **chain_bound(CHAIN_TIMED, BLOCKS, entry == "train")}
+            **pc.chain_bound([pc.TIMED], entry == "train")}
     if device.type != "cuda":
         return out
+    mma = tensor_core_counts("chain_conv3x3_bf16")
+    if mma and not all(v[0] > 0 for v in mma.values()):
+        raise AssertionError(f"chain: bf16 entries without HMMA: {mma}")
+    log("chain", f"SASS (HMMA, HGMMA) per bf16 entry: "
+        f"{list(mma.values()) or 'no cuobjdump'}")
     for k, shape in enumerate(W32_SHAPES + W48_SHAPES):
-        x, ws, gs, bs = chain_tensors(shape, BLOCKS, 60 + k, device)
-        ref = bc.branch_chain_train_plain(x, ws, gs, bs)
-        means, variances = ref.mean.unbind(0), ref.var.unbind(0)
-        xd, wd = x.to(torch.bfloat16), [t.to(torch.bfloat16) for t in ws]
-        lib = unfused_chain(x, ws, gs, bs, means, variances)
-        timed = {}
-        for entry in ("eval", "train"):
-            if entry == "eval":
-                def kernel():
-                    return bc.branch_chain_eval(xd, wd, gs, bs, means,
-                                                variances)
-
-                def plain():
-                    return bc.branch_chain_eval_plain(xd, wd, gs, bs, means,
-                                                      variances)
-            else:
-                def kernel():
-                    return bc.branch_chain_train(xd, wd, gs, bs)
-
-                def plain():
-                    return bc.branch_chain_train_plain(xd, wd, gs, bs)
-
-            def library(entry=entry):
-                lib.train(entry == "train")
-                with torch.no_grad(), autocast(torch.bfloat16, device):
-                    return lib(x)
-
-            dp1, dk1, dk2, dp2 = (device_ms(f, 10) for f in
-                                  (plain, kernel, kernel, plain))
-            dl = device_ms(library, 10)
-            timed[entry] = ((dk1 + dk2) / 2, (dp1 + dp2) / 2, dl)
-            if shape == CHAIN_TIMED:
+        timed = pc.time_shape(device, shape, 60 + k)
+        if shape == pc.TIMED:
+            for entry, t in timed.items():
                 out[f"branch_chain_{entry}"].update(
-                    ms=timed[entry][0], plain_ms=timed[entry][1],
-                    library_ms=dl)
-        b, c, h, w = shape
-        flop = 2 * BLOCKS * 18 * c * c * b * h * w
-        log("chain", f"P5 {shape} x {BLOCKS} blocks bf16, device time per "
-            f"call (profiler): " + "; ".join(
-                f"{entry} kernel {k:.4f} ms ({flop / k / 1e9:.1f} TFLOP/s), "
-                f"plain {p:.4f} ms, unfused modules {lb:.4f} ms, bound "
-                f"{chain_bound(shape, BLOCKS, entry == 'train')['bound_ms']:.4f}"
-                f" ms" for entry, (k, p, lb) in timed.items()))
+                    ms=sum(t["ms"]) / 2, plain_ms=t["plain_ms"],
+                    library_ms=sum(t["library_ms"]) / 2)
+        log("chain", f"P5 {shape} x {pc.BLOCKS} blocks bf16, device time "
+            f"per call (profiler, in turns): " + "; ".join(
+                f"{entry} kernel {t['ms'][0]:.4f}/{t['ms'][1]:.4f} ms "
+                f"({t['tflops']:.1f} TFLOP/s), unfused modules "
+                f"{t['library_ms'][0]:.4f}/{t['library_ms'][1]:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']})" for entry, t in timed.items()))
     return out
 
 
@@ -1237,6 +1120,7 @@ def phase_chain_grad(device) -> None:
     import torch
     from fhpe_tpu_torch.ops import branch_chain as bc
     from fhpe_tpu_torch.ops.branch_chain_cases import BLOCKS
+    from fhpe_tpu_torch.tools.profile_chain import chain_tensors
     from fhpe_tpu_torch.tools.train_parity import tf32_off
 
     x, ws, gs, bs = chain_tensors(CHAIN_GRAD_SHAPE, BLOCKS, 7, device)
@@ -1397,6 +1281,10 @@ def phase_hrnet_fpd_train(device, totals, label):
             f"{1 - busy / walls[0]:.3f}); {len(events) / 2:.1f} device ops "
             f"per step; ms per step by group: "
             + ", ".join(f"{g} {v:.2f}" for g, v in groups.most_common()))
+        if fused:
+            log("hrnet-train", f"P5 device time per step: "
+                f"{groups[P5_GROUP]:.3f} ms ({HRNET_CHAINS} P5e + "
+                f"{HRNET_CHAINS} P5t calls)")
     route(True)
 
     # P5 on one step's chain calls against the same chains run as modules

@@ -114,13 +114,17 @@ def load_library() -> ctypes.CDLL:
     lib.fhpe_conv3x3_wgrad.restype = ci
     pp = ctypes.POINTER(vp)
     lib.fhpe_branch_chain_eval.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci,
-                                           ci, pp, pp, pp, pp, pp,
-                                           ctypes.c_float, vp]
+                                           ci, ctypes.POINTER(ci), pp, pp,
+                                           pp, pp, pp, ctypes.c_float, vp]
     lib.fhpe_branch_chain_eval.restype = ci
     lib.fhpe_branch_chain_train.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci,
-                                            ci, ci, ci, ci, ci, pp, pp, pp,
+                                            ci, ci, ci, ci, ci,
+                                            ctypes.POINTER(ci), pp, pp, pp,
                                             ctypes.c_float, vp]
     lib.fhpe_branch_chain_train.restype = ci
+    lib.fhpe_branch_chain_part_tiles.argtypes = [ci, ci, ci, ci,
+                                                 ctypes.POINTER(ci)]
+    lib.fhpe_branch_chain_part_tiles.restype = ci
     lib.fhpe_conv3x3_fwd.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci,
                                      ctypes.POINTER(ci), vp]
     lib.fhpe_conv3x3_fwd.restype = ci

@@ -28,7 +28,10 @@ float64 inputs).  Two forms each:
   :func:`branch_chain_train_plain`;
 * the CUDA kernels ``ops/csrc/branch_chain.cu`` (an implicit-GEMM conv
   per launch with BN, ReLU and the residual in its epilogue; train mode
-  adds per-tile statistics merged in a fixed order).
+  adds per-tile statistics merged in a fixed order and a BN + ReLU
+  prologue on conv2's input): bfloat16 on the tensor cores through the
+  mainloop shared with conv3x3_fwd's kernel, tiled by
+  ``conv3x3_fwd.bf16_plan``; float32 on the CUDA cores.
 
 :func:`branch_chain_eval` and :func:`branch_chain_train` send CUDA tensors
 to the kernels (they never fall back) and CPU tensors to the plain
@@ -47,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build, conv_wgrad
+from .conv3x3_fwd import Bf16Plan, bf16_plan
 
 BN_EPS = 1e-5
 
@@ -58,7 +62,6 @@ branch_chain_train_launches = 0
 
 _CUDA_DTYPES = (torch.float32, torch.bfloat16)
 _CPU_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
-TILE_PIXELS = 64   # kBN of branch_chain.cu: one statistics partial per tile
 
 
 class ChainTrain(NamedTuple):
@@ -178,6 +181,15 @@ def _pointers(tensors: Sequence[torch.Tensor]):
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
+def _plan(x):
+    """The bf16 kernels' conv tiling (``conv3x3_fwd.bf16_plan``, cached) as
+    the ints the C entry points take; None for float32."""
+    if x.dtype != torch.bfloat16:
+        return None
+    b, _, h, w = x.shape
+    return (ctypes.c_int * len(Bf16Plan._fields))(*bf16_plan(b, h, w))
+
+
 def _kernel_check(x, tensors) -> None:
     if x.dtype not in _CUDA_DTYPES:
         raise ValueError(f"branch chain kernel takes float32 or bfloat16, "
@@ -201,9 +213,9 @@ def _eval_kernel(x, weights, gammas, betas, means, variances, eps):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.fhpe_branch_chain_eval(
             x.data_ptr(), y.data_ptr(), tmp.data_ptr(), len(weights) // 2,
-            b, c, h, w, int(x.dtype == torch.bfloat16), _pointers(weights),
-            _pointers(gammas), _pointers(betas), _pointers(means),
-            _pointers(variances), eps, stream)
+            b, c, h, w, int(x.dtype == torch.bfloat16), _plan(x),
+            _pointers(weights), _pointers(gammas), _pointers(betas),
+            _pointers(means), _pointers(variances), eps, stream)
     _build.check(lib, code, "branch chain eval kernel launch")
     branch_chain_eval_launches += 1
     return y
@@ -217,16 +229,21 @@ def _train_kernel(x, weights, gammas, betas, eps) -> ChainTrain:
     outs = torch.empty((nb, *x.shape), dtype=x.dtype, device=x.device)
     pre = torch.empty((2 * nb, *x.shape), dtype=x.dtype, device=x.device)
     stats = torch.empty((3, 2 * nb, c), dtype=torch.float32, device=x.device)
-    tiles = -(-b * h * w // TILE_PIXELS)
-    part = torch.empty((2, tiles, c), dtype=torch.float32, device=x.device)
+    is_bf16, plan = int(x.dtype == torch.bfloat16), _plan(x)
     lib = _build.load_library()
+    # per-tile (count, mean, M2) of each conv output, merged per channel
+    tiles = lib.fhpe_branch_chain_part_tiles(b, h, w, is_bf16, plan)
+    if tiles <= 0:
+        raise RuntimeError(f"branch chain train kernel refused the plan "
+                           f"{bf16_plan(b, h, w)} for {tuple(x.shape)}")
+    part = torch.empty((3, tiles, c), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.fhpe_branch_chain_train(
             x.data_ptr(), outs.data_ptr(), pre.data_ptr(), stats[0].data_ptr(),
             stats[1].data_ptr(), stats[2].data_ptr(), part.data_ptr(), nb, b,
-            c, h, w, int(x.dtype == torch.bfloat16), _pointers(weights),
-            _pointers(gammas), _pointers(betas), eps, stream)
+            c, h, w, is_bf16, plan, _pointers(weights), _pointers(gammas),
+            _pointers(betas), eps, stream)
     _build.check(lib, code, "branch chain train kernel launch")
     branch_chain_train_launches += 1
     return ChainTrain(outs[-1], stats[0], stats[1], stats[2],

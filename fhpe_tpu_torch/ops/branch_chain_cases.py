@@ -17,6 +17,9 @@ W32_SHAPES = [(32, 32, 64, 48), (32, 64, 32, 24), (32, 128, 16, 12),
 W48_SHAPES = [(32, 48, 64, 48), (32, 96, 32, 24), (32, 192, 16, 12),
               (32, 384, 8, 6)]
 BLOCKS = 4
+# Chains per branch in one HRNet forward: stages 2, 3 and 4 have 1, 4 and
+# 3 modules of 2, 3 and 4 branches, so 26 chains.
+BRANCH_CHAINS = (8, 8, 7, 3)
 # Edge cases (B, C, H, W, blocks): one sample, a 1x1 image (only the centre
 # tap sees data), odd batch and sides, channels that fill no tile evenly, a
 # row longer than a pixel tile.

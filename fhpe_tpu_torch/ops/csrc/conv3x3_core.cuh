@@ -1,7 +1,9 @@
-// The implicit-GEMM core of a 3x3, stride-1, pad-1 convolution with C input
-// and C output channels, NCHW, for Hopper (sm_90a).  Shared by the plain
-// conv (conv3x3_fwd.cu) and the HRNet branch chain (branch_chain.cu), which
-// add their own epilogues.
+// The float32 implicit-GEMM core of a 3x3, stride-1, pad-1 convolution with
+// C input and C output channels, NCHW, for Hopper (sm_90a), and the
+// elementwise helpers (rounding, BN, ReLU) of the port's conv kernels.
+// Shared by the float32 paths of the plain conv (conv3x3_fwd.cu) and the
+// HRNet branch chain (branch_chain.cu), which add their own epilogues;
+// their bfloat16 paths run the tensor-core mainloop of conv3x3_bf16.cuh.
 //
 // One block of kThreads threads computes a kBM x kBN output tile: M = C
 // output channels, N = B*H*W pixels, K = 9C (input channel, tap), in OIHW
@@ -9,19 +11,17 @@
 // kBK: the weight slice (A) and the shifted input taps (B, gathered with
 // the zero border in the loads, im2col on the fly: neighbouring threads read
 // neighbouring pixels) are staged in shared memory, the next step's loads in
-// flight in registers while the current step computes.  bfloat16 runs on
-// the tensor cores (wmma 16x16x16, float32 accumulate, each warp a 32 x 32
-// sub-tile); float32 on the CUDA cores (each thread a 4 x 8 sub-tile, fmaf).
-// The float32 accumulators end in shared memory (row stride kLdc), where
-// the epilogue reads them coalesced along pixels.  Ragged tiles in M, N and
-// K are masked, so any B, C, H and W run.  No atomics and no split K: each
-// output is one sum in a fixed order, so two runs give the same bits.
+// flight in registers while the current step computes, on the CUDA cores
+// (each thread a 4 x 8 sub-tile, fmaf).  The float32 accumulators end in
+// shared memory (row stride kLdc), where the epilogue reads them coalesced
+// along pixels.  Ragged tiles in M, N and K are masked, so any B, C, H and
+// W run.  No atomics and no split K: each output is one sum in a fixed
+// order, so two runs give the same bits.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 namespace conv3x3 {
 
@@ -33,12 +33,9 @@ constexpr int kLdc = kBN + 4;  // row stride of the float32 epilogue tile
 constexpr int kALoads = kBM * kBK / kThreads;  // 16
 constexpr int kBLoads = kBK * kBN / kThreads;  // 16
 
-// Shared-memory row strides (elements): wmma wants multiples of 8 for
-// 16-bit types; the float32 path pads against bank conflicts.
+// Shared-memory row strides (elements), padded against bank conflicts.
 template <typename T>
-struct Tile {
-  static constexpr int lda = kBK + 8, ldb = kBN + 8;
-};
+struct Tile;
 template <>
 struct Tile<float> {
   static constexpr int lda = kBK + 1, ldb = kBN + 4;
@@ -55,7 +52,6 @@ struct Smem {
   static constexpr int kCBytes = kBM * kLdc * static_cast<int>(sizeof(float));
   static constexpr int kBytes =
       kABytes + kBBytes > kCBytes ? kABytes + kBBytes : kCBytes;
-  static_assert(kABytes % 32 == 0, "wmma wants 32-byte aligned tiles");
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -93,59 +89,11 @@ struct Bn {
   const float* beta;
 };
 
-// The mainloop's multiply-accumulate: tensor cores for bfloat16 ...
+// The mainloop's multiply-accumulate on the CUDA cores (float32 only).
 template <typename T>
-struct Accum {
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>
-      acc[2][2];
+struct Accum;
 
-  __device__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) nvcuda::wmma::fill_fragment(acc[i][j], 0.f);
-  }
-
-  __device__ void step(const T* as, const T* bs, int tid) {
-    using namespace nvcuda;
-    constexpr int lda = Tile<T>::lda, ldb = Tile<T>::ldb;
-    const int warp = tid / 32, wm = warp / 2, wn = warp % 2;
-#pragma unroll
-    for (int ks = 0; ks < kBK; ks += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], as + (wm * 32 + i * 16) * lda + ks, lda);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], bs + ks * ldb + wn * 32 + j * 16, ldb);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-  }
-
-  __device__ void store(float* cs, int tid) {
-    const int warp = tid / 32, wm = warp / 2, wn = warp % 2;
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        nvcuda::wmma::store_matrix_sync(
-            cs + (wm * 32 + i * 16) * kLdc + wn * 32 + j * 16, acc[i][j],
-            kLdc, nvcuda::wmma::mem_row_major);
-  }
-};
-
-// ... and the CUDA cores for float32: thread (tx, ty) owns rows ty + 16q,
-// columns tx + 8p of the tile.
+// Thread (tx, ty) owns rows ty + 16q, columns tx + 8p of the tile.
 template <>
 struct Accum<float> {
   float acc[4][8];

@@ -80,6 +80,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "ptx_mma.cuh"
+
 namespace {
 
 constexpr int kBM = 64;          // output channels per tile
@@ -250,10 +252,6 @@ constexpr int kGeometryInts = 15;
 static_assert(sizeof(Geometry) == kGeometryInts * sizeof(int),
               "Geometry is the host's ints, unpadded");
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
 // 16 bytes from global to shared memory through cp.async; src-size 0
 // writes zeros.
 __device__ __forceinline__ void copy16(__nv_bfloat16* dst,
@@ -270,22 +268,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], unsigned addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // The (row, chunk) pairs idx = start, start + step, ... of a grid of rows

@@ -24,12 +24,14 @@ against var + eps.
 """
 
 import os
+import re
 import sys
 from unittest import mock
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax.numpy as jnp
 
@@ -38,7 +40,10 @@ from fhpe_tpu_torch.models import get_pose_net
 from fhpe_tpu_torch.models.common import BasicBlock, Bottleneck
 from fhpe_tpu_torch.models.pose_hrnet import BranchChain
 from fhpe_tpu_torch.ops import branch_chain as bc
-from fhpe_tpu_torch.ops.branch_chain_cases import chain_input, chain_params
+from fhpe_tpu_torch.ops import conv3x3_fwd as cf
+from fhpe_tpu_torch.ops.branch_chain_cases import (EDGE_CASES, W32_SHAPES,
+                                                   W48_SHAPES, chain_input,
+                                                   chain_params)
 from fhpe_tpu_torch.utils import convert
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -361,3 +366,235 @@ def test_wrappers_check_their_inputs():
                              [v[:4] for v in variances])
     with pytest.raises(ValueError, match="CPU"):
         bc.branch_chain_train(x.half(), [w.half() for w in ws], gs, bs)
+
+
+# -- the bf16 kernels' tiling (ops/csrc/branch_chain.cu on conv3x3_bf16.cuh) --
+
+CSRC = os.path.join(REPO, "fhpe_tpu_torch", "ops", "csrc")
+SMEM_LIMIT = 232448          # an H100's most shared memory a block
+# branch_chain.cu's static shared memory beside the plan's dynamic bytes:
+# the epilogue's BN parameters, s_bn[4][kTileM] floats
+EPILOGUE_SMEM = 4 * cf.BF16_TILE_M * 4
+CHAIN_SHAPES = W32_SHAPES + W48_SHAPES + [case[:4] for case in EDGE_CASES]
+
+
+def _source(name):
+    with open(os.path.join(CSRC, name), encoding="utf-8") as f:
+        return f.read()
+
+
+def _slot_pixels(plan, b, h, w):
+    """Per tile and slot: the slot's output pixel (sample, y, x) and
+    whether it lies in the image, as ``conv3x3_bf16.cuh::slot_offset``
+    maps them (a slot past the tile's pixels, in the bottom band, the last
+    column tile or past the last sample is out)."""
+    t = np.arange(plan.tiles)[:, None]
+    n = np.arange(cf.BF16_SLOTS)[None, :]
+    cc, rest = t % plan.col_tiles, t // plan.col_tiles
+    b0 = (rest // plan.bands) * plan.samples
+    y0, x0 = (rest % plan.bands) * plan.rows, cc * plan.cols
+    tile_px = plan.rows * plan.cols
+    s, r = n // tile_px, n % tile_px
+    bb, yy, xx = b0 + s, y0 + r // plan.cols, x0 + r % plan.cols
+    ok = (n < plan.samples * tile_px) & (bb < b) & (yy < h) & (xx < w)
+    return bb, yy, xx, ok
+
+
+def test_chain_kernels_take_the_shared_mainloop_and_plan():
+    """P5's bf16 conv runs the mainloop of conv3x3_bf16.cuh with the host's
+    plan (checked, then the grid and dynamic shared memory are the plan's),
+    its epilogue's static shared memory is EPILOGUE_SMEM, and the mainloop's
+    constants are the host's."""
+    src = _source("branch_chain.cu")
+    assert '#include "conv3x3_bf16.cuh"' in src
+    assert "__shared__ float s_bn[4][cb::kTileM];" in src
+    assert "cb::mainloop<" in src
+    assert "cb::check_plan(p, b, h, w)" in src
+    assert "const dim3 grid(p.tiles, (a.c + cb::kTileM - 1) / cb::kTileM);" \
+        in src
+    assert "kernel<<<grid, cb::kThreads, p.smem, stream>>>" in src
+    header = _source("conv3x3_bf16.cuh")
+    for name, value in (("kTileM", cf.BF16_TILE_M), ("kSlots", cf.BF16_SLOTS),
+                        ("kChunk", cf.BF16_CHUNK), ("kPitch", cf.BF16_PITCH),
+                        ("kMaxPatch", cf.BF16_MAX_PATCH)):
+        got = re.search(rf"constexpr int {name} = (\d+);", header).group(1)
+        assert int(got) == value, name
+    assert "kWeightBytes + p.patch * (kPitch * 2 + 4)" in header
+
+
+@pytest.mark.parametrize("shape", CHAIN_SHAPES,
+                         ids=["x".join(map(str, s)) for s in CHAIN_SHAPES])
+def test_chain_plan_fits_and_covers_every_pixel_once(shape):
+    """On every W32/W48 chain shape and edge case: the plan's shared memory
+    with the epilogue's fits a block, and every output pixel lies in
+    exactly one in-image slot."""
+    b, c, h, w = shape
+    plan = cf.bf16_plan(b, h, w)
+    assert plan.smem == cf.plan_smem(plan.patch)
+    assert plan.smem + EPILOGUE_SMEM <= SMEM_LIMIT
+    bb, yy, xx, ok = _slot_pixels(plan, b, h, w)
+    hits = np.zeros(b * h * w, np.int64)
+    np.add.at(hits, ((bb * h + yy) * w + xx)[ok], 1)
+    assert (hits == 1).all(), (shape, plan)
+
+
+def _f32_tiles(b, h, w):
+    """The float32 core's statistics tiles: 64 consecutive pixels of the
+    flattened (B, H, W), as (sample, y, x, in-image) per tile and slot."""
+    n = np.arange(-(-b * h * w // 64))[:, None] * 64 + np.arange(64)[None]
+    ok = n < b * h * w
+    n = np.where(ok, n, 0)
+    return n // (h * w), (n % (h * w)) // w, n % w, ok
+
+
+def _tile_stats(t, tiles):
+    """Per tile and channel, as the kernels' epilogues compute them over a
+    tile's in-image slots: count, mean and the sum of squared deviations
+    from it (two passes), float64.  Returns (count, mean, m2), (tiles, C)."""
+    bb, yy, xx, ok = (np.broadcast_to(a, tiles[3].shape) for a in tiles)
+    vals = t.permute(0, 2, 3, 1).numpy()[np.where(ok, bb, 0),
+                                         np.where(ok, yy, 0),
+                                         np.where(ok, xx, 0)]  # (tiles, n, C)
+    okf = ok[..., None].astype(np.float64)
+    cnt = okf.sum(1)
+    mean = (vals * okf).sum(1) / np.maximum(cnt, 1)
+    m2 = (((vals - mean[:, None]) * okf) ** 2).sum(1)
+    return np.broadcast_to(cnt, mean.shape), mean, m2
+
+
+def _merge_like_the_kernel(cnt, mean, m2, threads=256):
+    """chain_stats_reduce's fixed order: thread k merges tiles k, k + 256,
+    ... (Chan's formula), then a tree halves the threads."""
+    n_t = np.zeros((threads, cnt.shape[1]))
+    mu_t, m2_t = n_t.copy(), n_t.copy()
+
+    def merge(i, nb, mb, m2b):
+        take = nb > 0
+        tot = np.where(take, n_t[i] + nb, n_t[i])
+        delta = mb - mu_t[i]
+        frac = np.where(take, nb / np.where(take, tot, 1), 0)
+        mu_t[i] = mu_t[i] + delta * frac
+        m2_t[i] = m2_t[i] + np.where(
+            take, m2b + delta * delta * n_t[i] * frac, 0)
+        n_t[i] = tot
+
+    for t in range(cnt.shape[0]):
+        merge(t % threads, cnt[t], mean[t], m2[t])
+    s = threads // 2
+    while s:
+        for i in range(s):
+            merge(i, n_t[i + s].copy(), mu_t[i + s].copy(), m2_t[i + s].copy())
+        s //= 2
+    return n_t[0], mu_t[0], m2_t[0] / n_t[0]
+
+
+@pytest.mark.parametrize("tiling", ["bf16 plan", "float32 64-pixel"])
+@pytest.mark.parametrize("shape", [(3, 8, 5, 7), (1, 8, 1, 1), (3, 40, 9, 6),
+                                   (2, 16, 3, 130), (5, 8, 13, 11)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_tile_statistics_merge_to_the_batch_statistics(shape, tiling):
+    """The train epilogue's per-tile (count, mean, M2) over each tile's
+    in-image slots, ragged tiles included, merged in chain_stats_reduce's
+    fixed order in float64: every pixel counted once, and the merged mean
+    and variance equal batch_stats to 1e-12 relative."""
+    b, c, h, w = shape
+    t = torch.from_numpy(np.random.RandomState(sum(shape)).randn(
+        b, c, h, w) + 0.5)
+    if tiling == "bf16 plan":
+        tiles = _slot_pixels(cf.bf16_plan(b, h, w), b, h, w)
+    else:
+        tiles = _f32_tiles(b, h, w)
+    cnt, mean, m2 = _tile_stats(t, tiles)
+    n, mu, var = _merge_like_the_kernel(cnt, mean, m2)
+    assert (n == b * h * w).all()
+    ref_mean, ref_var = bc.batch_stats(t)
+    scale = t.abs().max().item()
+    np.testing.assert_allclose(mu, ref_mean.numpy(), rtol=1e-12,
+                               atol=1e-12 * scale)
+    np.testing.assert_allclose(var, ref_var.numpy(), rtol=1e-12, atol=0)
+
+
+def _emulate_pre_conv(u, wt, pre, halo_bn=False):
+    """conv3x3 of relu(bn(u)) as the bf16 mainloop stages it with its
+    prologue, float64: per tile the patch's pixel table, each staged value
+    relu(bn(u)) where the pixel lies in the image and 0 in the halo
+    (``halo_bn``: relu(bn(0)) there instead, the rule broken), the nine
+    taps as row offsets of the patch, and the epilogue's slot -> pixel
+    map."""
+    b, c, h, w = u.shape
+    plan = cf.bf16_plan(b, h, w)
+    mean, inv, gamma, beta = (p[None, :] for p in pre)
+    uf = u.permute(0, 2, 3, 1).reshape(-1, c)        # pixel-major
+    y = torch.zeros(b * h * w, c, dtype=torch.float64)
+    sample_patch = (plan.rows + 2) * plan.patch_w
+    tile_px = plan.rows * plan.cols
+    q = torch.arange(plan.patch)
+    n = torch.arange(cf.BF16_SLOTS)
+    s_n, r_n = n // tile_px, n % tile_px
+    pos = s_n * sample_patch + (r_n // plan.cols) * plan.patch_w \
+        + r_n % plan.cols
+    bb_s, yy_s, xx_s, ok_s = _slot_pixels(plan, b, h, w)
+    for t in range(plan.tiles):
+        cc, rest = t % plan.col_tiles, t // plan.col_tiles
+        b0 = (rest // plan.bands) * plan.samples
+        y0, x0 = (rest % plan.bands) * plan.rows, cc * plan.cols
+        s, r = q // sample_patch, q % sample_patch
+        yy, xx = y0 - 1 + r // plan.patch_w, x0 - 1 + r % plan.patch_w
+        bb = b0 + s
+        inside = (bb < b) & (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+        src = torch.where(inside, (bb * h + yy) * w + xx,
+                          torch.zeros_like(q))
+        norm = torch.relu((uf[src] - mean) * inv * gamma + beta)
+        halo = torch.relu((0 - mean) * inv * gamma + beta) if halo_bn \
+            else torch.zeros_like(norm)
+        xs = torch.where(inside[:, None], norm, halo)
+        acc = torch.zeros(cf.BF16_SLOTS, c, dtype=torch.float64)
+        for tap in range(9):
+            rows = xs[(pos + (tap // 3) * plan.patch_w + tap % 3)
+                      .clamp(max=plan.patch - 1)]
+            acc += rows @ wt[:, :, tap // 3, tap % 3].T
+        ok = torch.from_numpy(ok_s[t])
+        dst = torch.from_numpy((bb_s[t] * h + yy_s[t]) * w + xx_s[t])
+        y[dst[ok]] = acc[ok]
+    return y.view(b, h, w, c).permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("shape", [(3, 8, 5, 7), (2, 8, 12, 11),
+                                   (1, 8, 1, 1)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_prologue_keeps_the_halo_zero(shape):
+    """The train-mode conv2's prologue: relu(bn1(u)) on every staged value
+    inside the image, 0 in the halo, equals F.conv2d of relu(bn1(u))
+    zero-padded; normalizing the halo too (relu(bn1(0)) is not 0) does
+    not."""
+    b, c, h, w = shape
+    rng = np.random.RandomState(sum(shape))
+    u = torch.from_numpy(rng.randn(b, c, h, w))
+    wt = torch.from_numpy(rng.randn(c, c, 3, 3) / np.sqrt(9 * c))
+    mean, var = bc.batch_stats(u)
+    pre = (mean - 1.0, torch.rsqrt(var + bc.BN_EPS),
+           torch.from_numpy(rng.uniform(0.5, 1.5, c)),
+           torch.from_numpy(rng.normal(0.5, 0.1, c)))
+    a = F.relu(bc._bn(u, *pre))
+    ref = F.conv2d(a, wt, padding=1)
+    got = _emulate_pre_conv(u, wt, pre)
+    scale = ref.abs().max().item()
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-12 * scale)
+    wrong = _emulate_pre_conv(u, wt, pre, halo_bn=True)
+    assert (wrong - ref).abs().max().item() > 1e-3 * scale
+
+
+def test_statistics_partials_carry_their_counts():
+    """Both train convs (the bf16 tensor-core one and the float32 core)
+    write (count, mean, M2) per tile and channel as (3, tiles, C), and the
+    merge reads each partial's count from it: no tile is assumed to hold
+    64 consecutive pixels."""
+    src = _source("branch_chain.cu")
+    assert src.count("write_part(") == 3     # defined, and both convs
+    merge = "merge(n, mean, m2, part[at], part[row + at], part[2 * row + at]);"
+    assert merge in src
+    assert "min(kBN, n_total - t * kBN)" not in src
+    with open(bc.__file__, encoding="utf-8") as f:
+        wrapper = f.read()
+    assert "part = torch.empty((3, tiles, c)" in wrapper
+    assert "TILE_PIXELS" not in wrapper

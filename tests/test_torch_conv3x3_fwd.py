@@ -262,12 +262,13 @@ def test_which_models_route_to_the_kernel(monkeypatch, name, make_cfg, hw,
     assert len(calls) == per_forward
 
 
-# -- the bf16 kernel's tile plan and index math (ops/csrc/conv3x3_fwd.cu) ----
+# -- the bf16 kernel's tile plan and index math (ops/csrc/conv3x3_bf16.cuh) --
 
 from fhpe_tpu_torch.ops.conv3x3_fwd_cases import (  # noqa: E402
     EDGE_SHAPES, PROBE_SHAPE, RN50_SHAPES, WIDE_SHAPES)
 
-CU_SRC = os.path.join(REPO, "fhpe_tpu_torch", "ops", "csrc", "conv3x3_fwd.cu")
+CU_SRC = os.path.join(REPO, "fhpe_tpu_torch", "ops", "csrc",
+                      "conv3x3_bf16.cuh")
 SMEM_LIMIT = 232448         # an H100's most shared memory a block
 THREADS = 256               # kThreads of the bf16 kernel
 
