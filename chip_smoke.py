@@ -9,8 +9,8 @@ user calls, with random weights from a seed:
   ``Predictor.warmup`` / ``Predictor.predict_crops``;
 * the COCO path of the FPD student HRNet-W32 (256x192, 17 joints, bf16,
   batch 32, flip test on): ``Predictor.predict_crops`` ->
-  ``cli.common.make_evaluate_fn`` (rescore, OKS-NMS on the card through
-  the pairwise-OKS and greedy kernels, results JSON, COCO AP);
+  ``cli.common.make_evaluate_fn`` (rescore, OKS-NMS on the card in one
+  launch of the segmented OKS-NMS kernel, results JSON, COCO AP);
 * FPD training of the hourglass student by the teacher (bf16, batch 32,
   Adam): ``train.create_train_state`` -> ``make_batch_preprocessor`` ->
   ``make_fpd_train_step`` (the 3x3 filter gradients through the P4
@@ -39,9 +39,19 @@ Phases; any failure raises and exits non-zero:
    (bit-equal), then the device time of both from a profiler trace;
 4. NMS kernels against their plain versions on planted cases (equal
    scores, all padding but one, nothing valid, duplicate clusters) at
-   N = 128, 256, 1152: the OKS matrix within rtol 1e-5 / atol 1e-6, the
-   greedy keep mask bit-equal; then the device time of each and of its
-   plain version at the COCO path's N = 128;
+   N = 128, 256, 1152: the OKS matrix (K2) within rtol 1e-5 / atol 1e-6,
+   the greedy keep mask bit-equal (N = 1152 on the scratch path), the
+   segmented OKS-NMS kernel on each case's valid rows bit-equal to K2 ->
+   greedy on the card and to its plain version, and on one ragged pack
+   (every planted image, empty images, NaN and -inf scores, images above
+   the shared-memory cap) and on one of 5 joints; then device times at N = 128 (K2, greedy, the
+   two together, the segmented kernel on the same image and on one of 128
+   detections) and of the segmented kernel on 64 images of a COCO-sized
+   set, against its plain version; then (4b) that set at COCO val2017's
+   scale, 5,000 images: keep-lists against the host float64 ``oks_nms``,
+   the kernel's device time and bound, the drop-in's host time per image
+   split into pack, copy, kernel and lists, the host ``oks_nms`` per
+   image, the idle share;
 5. student serve in bf16: requests of 1, 32 and 45 crops, shape/finite
    checks, decode launches == chunks, kernel vs plain on one chunk's
    heatmaps, the bf16 dtype flow of every conv/BN/block, warm images/s;
@@ -54,10 +64,11 @@ Phases; any failure raises and exits non-zero:
 10. COCO evaluation on synthetic ground truth (64 images of 1-4 people):
     (a) planted detections: per image the keep-list equals the host
     float64 ``oks_nms``'s, AP equals the host-NMS run's and is > 0.5, and
-    the OKS and greedy kernels ran once per image; the NMS time per
-    image; (b) the W32 Predictor's own outputs on crops at the ground
-    truth boxes: decode launches == chunks, NMS launches == images, the
-    10 stats finite;
+    the segmented OKS-NMS kernel ran once for the set (no K2 or greedy
+    launch); the NMS time per image, batched and one image at a time;
+    (b) the W32 Predictor's own outputs on crops at the ground truth
+    boxes: decode launches == chunks, one segmented NMS launch, the 10
+    stats finite;
 11. P4 (3x3 filter gradient) kernel against its plain version on every
     shape of the three train steps' P4 sets at batch 32, edge and wide
     cases, bf16 and float32, planted inputs: within the bars of
@@ -102,7 +113,7 @@ Phases; any failure raises and exits non-zero:
 19. validation of the trained W32: ``make_eval_step`` (flip test, a padded
     last batch) on crops of phase 10's synthetic COCO set, then COCO AP
     through ``make_evaluate_fn``: 52 P5e and 3 decode launches per batch,
-    one OKS and one greedy launch per image, 10 finite stats;
+    one segmented OKS-NMS launch per evaluated set, 10 finite stats;
 20. the conv3x3_fwd kernel against its plain version on the four RN-50
     3x3 shapes at batch 32, the probes' shape, edge cases (B = 1 and 3,
     C = 8 and 40, 1x1 and 3x130 images) and wide cases (W = 200 and 258,
@@ -125,11 +136,11 @@ Phases; any failure raises and exits non-zero:
     phase 13's bars, card with the route against card without it at the
     bars of ``RN50_ROUTE_STEP_BARS``;
 24. validation of the trained RN-50 as phase 19: 26 conv3x3_fwd and 3
-    decode launches per batch, one OKS and one greedy launch per image,
-    10 finite stats.
+    decode launches per batch, one segmented OKS-NMS launch per evaluated
+    set, 10 finite stats.
 
-Phases 15, 16 and 20 run right after 11; W32 serving (phases 8 and 10)
-also counts 52 P5e launches per chunk.
+Phases 15, 20, 4b and 16 run right after 11, in that order; W32 serving
+(phases 8 and 10) also counts 52 P5e launches per chunk.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; comparisons of a kernel with its plain version run outside
@@ -162,6 +173,8 @@ TIMED_SHAPE = (32, 16, 64, 64)
 NMS_SIZES = (128, 256, 1152)
 NMS_TIMED_N = 128          # every image of the COCO path pads to 128
 NMS_THRESH = 0.9           # TEST.OKS_THRE of the W32 config
+NMS_SCALE_IMAGES = 5000    # COCO val2017's image count, ~20 detections each
+NMS_HOST_IMAGES = 500      # of them timed through the host float64 oks_nms
 # K2 against its plain version: the JAX package's own bar for K2 against
 # pairwise_oks_jnp (tests/test_native_nms.py:90).
 OKS_RTOL, OKS_ATOL = 1e-5, 1e-6
@@ -264,10 +277,12 @@ OKS_OPS_PER_JOINT, OKS_OPS_PER_PAIR = 10, 5
 KERNELS = {
     "decode_heatmaps": {"source": "fhpe_tpu_torch/ops/csrc/decode.cu",
                         "replaces": "fhpe_tpu/ops/decode_pallas.py:24"},
-    "pairwise_oks": {"source": "fhpe_tpu_torch/ops/csrc/nms.cu",
-                     "replaces": "fhpe_tpu/ops/nms_jax.py:75"},
-    "greedy_nms_mask": {"source": "fhpe_tpu_torch/ops/csrc/nms.cu",
-                        "replaces": "fhpe_tpu/ops/nms_jax.py:126"},
+    # K2 and the greedy selection in one launch per evaluated set; their
+    # standalone kernels (pairwise_oks, greedy_nms_mask) are off the main
+    # path and held to their plain versions in phase 4
+    "oks_nms_segments": {"source": "fhpe_tpu_torch/ops/csrc/nms.cu",
+                         "replaces": "fhpe_tpu/ops/nms_jax.py:75",
+                         "replaces_also": "fhpe_tpu/ops/nms_jax.py:126"},
     "conv3x3_wgrad": {"source": "fhpe_tpu_torch/ops/csrc/conv_wgrad.cu",
                       "replaces": "scripts/probe/dw_pallas_probe.py:32"},
     "branch_chain_eval": {
@@ -333,6 +348,7 @@ def _counters():
     return {"decode_heatmaps": (decode, "decode_kernel_launches"),
             "pairwise_oks": (nms_torch, "pairwise_oks_launches"),
             "greedy_nms_mask": (nms_torch, "greedy_nms_launches"),
+            "oks_nms_segments": (nms_torch, "oks_nms_segment_launches"),
             "conv3x3_wgrad": (conv_wgrad, "conv_wgrad_launches"),
             "branch_chain_eval": (branch_chain,
                                   "branch_chain_eval_launches"),
@@ -344,8 +360,10 @@ def _counters():
 
 def expected(device, **launches) -> dict:
     """The counts a main-path run should read: ``launches`` of the kernels
-    named, 0 of every other (all 0 on the CPU, see :func:`on_card`)."""
-    return {name: on_card(device, launches.get(name, 0)) for name in KERNELS}
+    named, 0 of every other counted one (all 0 on the CPU, see
+    :func:`on_card`)."""
+    return {name: on_card(device, launches.get(name, 0))
+            for name in _counters()}
 
 
 def fwd_launches(model, dtype, forwards: int) -> dict:
@@ -477,18 +495,83 @@ def phase_kernel_vs_plain(device) -> dict:
             "plain_ms": (dp1 + dp2) / 2, **lim}
 
 
-def phase_nms_kernels(device) -> dict:
-    """OKS kernel within tolerance and greedy kernel bit-equal to their
-    plain versions on planted cases; then timings at N = 128."""
+def _segment_pack(images, device):
+    """[(name, xs, ys, areas, scores)] numpy images -> the CSR pack on
+    ``device`` (xs, ys, areas, scores, int32 offsets) and the offsets."""
     import torch
-    from fhpe_tpu_torch.ops.nms_cases import planted_nms_cases
+    offsets = np.concatenate([[0], np.cumsum([len(im[4]) for im in images])])
+    pack = [torch.from_numpy(np.concatenate([im[k] for im in images])
+                             ).to(device) for k in range(1, 5)]
+    pack.append(torch.from_numpy(offsets.astype(np.int32)).to(device))
+    return pack, offsets
+
+
+def nms_pairs(sizes) -> int:
+    """The OKS values a hard OKS-NMS of images of ``sizes`` detections
+    needs: OKS is symmetric and a detection never suppresses itself, so
+    sum n_g (n_g - 1) / 2 pairs."""
+    sizes = np.asarray(sizes, np.int64)
+    return int((sizes * (sizes - 1) // 2).sum())
+
+
+def segment_bound(offsets, joints: int) -> dict:
+    """The segmented OKS-NMS's least time: xs, ys, areas, scores and the
+    offsets read once and keep written once; K2's operations per pair
+    over :func:`nms_pairs`."""
+    sizes = np.diff(offsets)
+    t = int(sizes.sum())
+    return bound(4 * (2 * t * joints + 2 * t + len(offsets)) + t,
+                 nms_pairs(sizes)
+                 * (OKS_OPS_PER_JOINT * joints + OKS_OPS_PER_PAIR))
+
+
+def traced_nms(fn, calls: int = 5) -> str:
+    """``calls`` calls of ``fn`` (the batched drop-in) under one profiler
+    trace: host time per call, the device's busy time and idle share.  A
+    trace of a single call has been seen to lose its kernel; one that holds
+    no kernel is taken again, up to ``profiling.TRACES`` in all, then the
+    share is "not measured"."""
+    from fhpe_tpu_torch.utils.profiling import TRACES, busy_ms, device_events
+    for _ in range(TRACES):
+        walls = []
+
+        def timed():
+            t0 = time.perf_counter()
+            fn()
+            walls.append((time.perf_counter() - t0) * 1e3)
+
+        events = device_events(timed, calls)
+        if any(e["cat"] == "kernel" for e in events):
+            wall, busy = sum(walls), busy_ms(events)
+            copies = sum(float(e["dur"]) for e in events
+                         if e["cat"] == "gpu_memcpy") / 1e3
+            return (f"{wall / calls:.3f} ms per call, device busy "
+                    f"{busy / calls:.4f} ms (idle share {1 - busy / wall:.4f})"
+                    f", of which memcpy {copies / calls:.4f} ms; "
+                    f"{len(events) / calls:.1f} device ops per call "
+                    f"({calls} calls)")
+    return f"idle share not measured (no kernel in {TRACES} traces)"
+
+
+def phase_nms_kernels(device) -> dict:
+    """OKS kernel within tolerance, greedy and segmented kernels bit-equal
+    to their plain versions and to each other on planted cases; then
+    timings at N = 128 and on a COCO-sized set."""
+    import torch
+    from fhpe_tpu_torch.ops.nms import COCO_SIGMAS
+    from fhpe_tpu_torch.ops.nms_cases import (coco_scale_groups,
+                                              planted_nms_cases,
+                                              ragged_nms_images)
     from fhpe_tpu_torch.ops.nms_torch import (greedy_nms_mask,
                                               greedy_nms_mask_plain,
+                                              oks_nms_segments,
+                                              oks_nms_segments_plain,
+                                              pack_groups, packed_views,
                                               pairwise_oks,
                                               pairwise_oks_plain)
     from fhpe_tpu_torch.utils.profiling import device_ms
 
-    oks_err, checked = 0.0, 0
+    oks_err, checked, images = 0.0, 0, []
     for n in NMS_SIZES:
         for name, *arrays in planted_nms_cases(n, seed=n):
             xs, ys, areas, scores, valid = (torch.from_numpy(a).to(device)
@@ -501,17 +584,63 @@ def phase_nms_kernels(device) -> dict:
                 raise AssertionError(f"OKS kernel != plain beyond rtol "
                                      f"{OKS_RTOL} atol {OKS_ATOL} on {name}"
                                      f" N={n}")
+            keeps = []
             for s in (sim, ref):
-                keep = greedy_nms_mask(s, scores, valid, NMS_THRESH)
+                keeps.append(greedy_nms_mask(s, scores, valid, NMS_THRESH))
                 keep_ref = greedy_nms_mask_plain(s, scores, valid,
                                                  NMS_THRESH)
-                if not torch.equal(keep, keep_ref):
+                if not torch.equal(keeps[-1], keep_ref):
                     raise AssertionError(f"greedy kernel != plain on {name}"
                                          f" N={n}")
+            # the same image as the COCO path packs it: its valid rows
+            v = arrays[4]
+            image = (f"{name} N={n}", *(a[v] for a in arrays[:4]))
+            (pxs, pys, pareas, pscores, poff), off = _segment_pack([image],
+                                                                   device)
+            seg = oks_nms_segments(pxs, pys, pareas, pscores, poff,
+                                   NMS_THRESH, host_offsets=off)
+            if not (torch.equal(seg, keeps[0][valid]) and torch.equal(
+                    seg, oks_nms_segments_plain(pxs, pys, pareas, pscores,
+                                                off, NMS_THRESH))):
+                raise AssertionError(f"segmented kernel != K2 -> greedy or "
+                                     f"plain on {name} N={n}")
+            images.append(image)
             checked += 1
     log("nms", f"OKS kernel within rtol {OKS_RTOL} / atol {OKS_ATOL} of "
         f"plain (max|diff| {oks_err:.3g}), greedy kernel == plain "
+        f"(bit-equal), segmented kernel == K2 -> greedy on the card == plain "
         f"(bit-equal) on {checked} planted cases at N = {NMS_SIZES}")
+
+    # one ragged pack: every planted image, empty images, NaN and -inf
+    # scores, images above the shared-memory cap (the scratch path)
+    images += ragged_nms_images(seed=17)
+    pack, off = _segment_pack(images, device)
+    seg = oks_nms_segments(*pack, NMS_THRESH, host_offsets=off)
+    if not torch.equal(seg, oks_nms_segments_plain(*pack[:4], off,
+                                                   NMS_THRESH)):
+        raise AssertionError("segmented kernel != plain on the ragged pack")
+    for (name, *arrays), lo, hi in zip(images, off[:-1], off[1:]):
+        xs, ys, areas, scores = (torch.from_numpy(a).to(device)
+                                 for a in arrays)
+        if hi > lo and not torch.equal(seg[lo:hi], greedy_nms_mask(
+                pairwise_oks(xs, ys, areas), scores,
+                torch.ones(hi - lo, dtype=torch.bool, device=device),
+                NMS_THRESH)):
+            raise AssertionError(f"segmented kernel != K2 -> greedy on "
+                                 f"{name} in the ragged pack")
+    sizes = np.diff(off)
+    # a joint count other than COCO's 17: the kernel's generic joint loop
+    sigmas = COCO_SIGMAS[:5]
+    pack5, off5 = _segment_pack(ragged_nms_images(seed=19, joints=5), device)
+    if not torch.equal(
+            oks_nms_segments(*pack5, NMS_THRESH, sigmas, host_offsets=off5),
+            oks_nms_segments_plain(*pack5[:4], off5, NMS_THRESH, sigmas)):
+        raise AssertionError("segmented kernel != plain with 5 joints")
+    log("nms", f"segmented kernel == plain == K2 -> greedy per image "
+        f"(bit-equal) on one ragged pack of {len(images)} images "
+        f"({int((sizes == 0).sum())} empty, {int((sizes > 512).sum())} above "
+        f"the shared-memory cap, {int(seg.sum())} of {int(sizes.sum())} "
+        f"kept); == plain on a ragged pack of 5 joints")
 
     _, *arrays = planted_nms_cases(NMS_TIMED_N, seed=21)[0]   # clusters
     xs, ys, areas, scores, valid = (torch.from_numpy(a).to(device)
@@ -519,6 +648,20 @@ def phase_nms_kernels(device) -> dict:
     sim = pairwise_oks(xs, ys, areas)
     kept = int(greedy_nms_mask(sim, scores, valid, NMS_THRESH).sum())
     n, j = xs.shape
+    one, one_off = _segment_pack([("", *(a[arrays[4]] for a in arrays[:4]))],
+                                 device)
+    _, *arrays = planted_nms_cases(2 * NMS_TIMED_N, seed=21)[0]
+    full, full_off = _segment_pack(
+        [("", *(a[arrays[4]] for a in arrays[:4]))], device)
+    # the JSON line's figures: the first COCO_IMAGES images of the
+    # COCO-sized set, as one evaluated set of the main path packs them
+    buf, set_off, t = pack_groups(coco_scale_groups(COCO_IMAGES, seed=41), j)
+    coco64 = packed_views(torch.from_numpy(buf).to(device), t, j)
+    if not torch.equal(oks_nms_segments(*coco64, NMS_THRESH,
+                                        host_offsets=set_off),
+                       oks_nms_segments_plain(*coco64[:4], set_off,
+                                              NMS_THRESH)):
+        raise AssertionError("segmented kernel != plain on the 64 images")
     timed = {
         "pairwise_oks": (
             lambda: pairwise_oks(xs, ys, areas),
@@ -531,22 +674,135 @@ def phase_nms_kernels(device) -> dict:
             lambda: greedy_nms_mask_plain(sim, scores, valid, NMS_THRESH),
             # one row of sim per kept detection, scores, valid, keep
             bound(4 * kept * n + 4 * n + 2 * n, kept * n)),
+        "K2 -> greedy": (
+            lambda: greedy_nms_mask(pairwise_oks(xs, ys, areas), scores,
+                                    valid, NMS_THRESH),
+            # the inputs of the padded image; the OKS of its valid pairs
+            None, bound(4 * (2 * n * j + 3 * n) + n,
+                        nms_pairs([int(valid.sum())])
+                        * (OKS_OPS_PER_JOINT * j + OKS_OPS_PER_PAIR))),
+        f"segmented, the same image ({int(valid.sum())} detections)": (
+            lambda: oks_nms_segments(*one, NMS_THRESH, host_offsets=one_off),
+            None, segment_bound(one_off, j)),
+        f"segmented, one image of {int(np.diff(full_off)[0])} detections": (
+            lambda: oks_nms_segments(*full, NMS_THRESH,
+                                     host_offsets=full_off),
+            None, segment_bound(full_off, j)),
+        "oks_nms_segments": (
+            lambda: oks_nms_segments(*coco64, NMS_THRESH,
+                                     host_offsets=set_off),
+            lambda: oks_nms_segments_plain(*coco64[:4], set_off, NMS_THRESH),
+            segment_bound(set_off, j)),
     }
-    out = {"pairwise_oks": {"max_abs_err": oks_err},
-           "greedy_nms_mask": {"max_abs_err": 0.0}}
+    out = {"oks_nms_segments": {"max_abs_err": 0.0, "ms": None,
+                                "plain_ms": None,
+                                **segment_bound(set_off, j)}}
+    if device.type != "cuda":
+        return out
     for name, (kernel, plain, lim) in timed.items():
-        out[name].update(ms=None, plain_ms=None, **lim)
-        if device.type != "cuda":
-            continue
-        iters = 100 if name == "pairwise_oks" else 20
-        dp1, dk1, dk2, dp2 = (device_ms(f, iters) for f in
-                              (plain, kernel, kernel, plain))
-        out[name].update(ms=(dk1 + dk2) / 2, plain_ms=(dp1 + dp2) / 2, **lim)
-        log("nms", f"{name} N={n} ({int(valid.sum())} valid, {kept} kept):"
-            f" device time per call (profiler) kernel {dk1:.4f}/{dk2:.4f}"
-            f" ms, plain {dp1:.4f}/{dp2:.4f} ms; bound "
-            f"{lim['bound_ms']:.6f} ms ({lim['bound_by']})")
+        iters = 5 if name == "oks_nms_segments" else 50
+        if plain is None:
+            dk1, dk2 = device_ms(kernel, iters), device_ms(kernel, iters)
+            dp1 = dp2 = None
+        else:
+            dp1, dk1, dk2, dp2 = (device_ms(f, iters) for f in
+                                  (plain, kernel, kernel, plain))
+        where = (f"{COCO_IMAGES} images of {np.diff(set_off).min()}-"
+                 f"{np.diff(set_off).max()} ({t}) detections"
+                 if name == "oks_nms_segments" else
+                 f"N={n} ({int(valid.sum())} valid, {kept} kept)")
+        log("nms", f"{name}, {where}: device time per call (profiler) "
+            f"kernel {dk1:.4f}/{dk2:.4f} ms"
+            + ("" if plain is None else
+               f", plain {dp1:.4f}/{dp2:.4f} ms")
+            + f"; bound {lim['bound_ms']:.6f} ms ({lim['bound_by']})")
+        if name == "oks_nms_segments":
+            out[name].update(ms=(dk1 + dk2) / 2, plain_ms=(dp1 + dp2) / 2)
     return out
+
+
+def phase_nms_coco_scale(device) -> None:
+    """The batched device OKS-NMS on a synthetic set at COCO val2017's
+    scale (``NMS_SCALE_IMAGES`` images, ~20 detections each): keep-lists
+    against the host float64 ``oks_nms`` on the first
+    ``NMS_HOST_IMAGES``; the segmented kernel's device time and bound; the
+    drop-in's host-clock time per image split into pack, copy, kernel and
+    lists; the host ``oks_nms`` per image; the idle share."""
+    import torch
+    from fhpe_tpu_torch.data.coco_synthetic import oks_margin
+    from fhpe_tpu_torch.ops.nms import oks_nms
+    from fhpe_tpu_torch.ops.nms_cases import coco_scale_groups
+    from fhpe_tpu_torch.ops.nms_torch import (keep_lists,
+                                              oks_nms_device_batched,
+                                              oks_nms_segments, pack_groups,
+                                              packed_views)
+    from fhpe_tpu_torch.utils.profiling import device_ms
+
+    groups = coco_scale_groups(NMS_SCALE_IMAGES, seed=41)
+    images, j = len(groups), 17
+    lists = oks_nms_device_batched(groups, NMS_THRESH, device=device)
+    head = groups[:NMS_HOST_IMAGES]
+    t0 = time.perf_counter()
+    host = [oks_nms(g, NMS_THRESH) for g in head]
+    host_ms = (time.perf_counter() - t0) * 1e3 / len(head)
+    checked = [i for i, g in enumerate(head)
+               if oks_margin(g, NMS_THRESH) > OKS_MARGIN]
+    bad = sum(lists[i] != host[i] for i in checked)
+    if bad or not checked:
+        raise AssertionError(f"nms-scale: device keep-lists != host oks_nms "
+                             f"on {bad} of {len(checked)} images")
+
+    parts = {k: [] for k in ("pack", "copy", "kernel", "lists", "total")}
+    for _ in range(5):
+        sync(device)
+        t0 = time.perf_counter()
+        buf, off, t = pack_groups(groups, j)
+        t1 = time.perf_counter()
+        dev = torch.from_numpy(buf).to(device)
+        sync(device)
+        t2 = time.perf_counter()
+        keep = oks_nms_segments(*packed_views(dev, t, j), NMS_THRESH,
+                                host_offsets=off)
+        sync(device)
+        t3 = time.perf_counter()
+        got = keep_lists(keep.cpu().numpy(),
+                         buf[2 * t * j + t:2 * t * j + 2 * t].view(
+                             np.float32), off)
+        t4 = time.perf_counter()
+        oks_nms_device_batched(groups, NMS_THRESH, device=device)
+        sync(device)
+        t5 = time.perf_counter()
+        for k, a, b in (("pack", t0, t1), ("copy", t1, t2),
+                        ("kernel", t2, t3), ("lists", t3, t4),
+                        ("total", t4, t5)):
+            parts[k].append((b - a) * 1e3 / images)
+    if got != lists:
+        raise AssertionError("nms-scale: the split run's lists differ")
+    med = {k: float(np.median(v)) for k, v in parts.items()}
+    sizes = np.diff(off)
+    lim = segment_bound(off, j)
+    log("nms-scale", f"{images} images, {t} detections ({sizes.mean():.2f} "
+        f"per image, max {sizes.max()}, {int((sizes == 0).sum())} empty), "
+        f"{sum(map(len, lists))} kept; keep-lists == host float64 oks_nms on "
+        f"{len(checked)} of the first {len(head)} images")
+    log("nms-scale", "oks_nms_device_batched per image (host clock, median "
+        f"of 5): {med['total'] * 1e3:.3f} us; split: pack "
+        f"{med['pack'] * 1e3:.3f}, copy {med['copy'] * 1e3:.3f}, kernel "
+        f"(launch to synchronise) {med['kernel'] * 1e3:.3f}, download + "
+        f"lists {med['lists'] * 1e3:.3f} us; host float64 oks_nms "
+        f"{host_ms * 1e3:.3f} us per image (first {len(head)} images)")
+    if device.type != "cuda":
+        return
+    xs, ys, areas, scores, d_off = packed_views(dev, t, j)
+    k1, k2 = (device_ms(lambda: oks_nms_segments(
+        xs, ys, areas, scores, d_off, NMS_THRESH, host_offsets=off), 5)
+        for _ in range(2))
+    log("nms-scale", f"segmented kernel, one launch for the {images} "
+        f"images: device time {k1:.4f}/{k2:.4f} ms (profiler); bound "
+        f"{lim['bound_ms']:.6f} ms ({lim['bound_by']}; {nms_pairs(sizes)} "
+        f"pairs, sum n (n - 1) / 2); the drop-in under the "
+        f"profiler: " + traced_nms(lambda: oks_nms_device_batched(
+            groups, NMS_THRESH, device=device)))
 
 
 # -- serving -------------------------------------------------------------------
@@ -731,20 +987,21 @@ def phase_coco_planted(cfg, gt, device, out_dir, totals) -> None:
     evaluate = make_evaluate_fn(cfg, device=device)
 
     # The host-NMS run: the same entry point with the host oks_nms in the
-    # device drop-in's place; each image's device keep-list is compared.
-    device_nms, lists, skipped = nms_torch.oks_nms_device, [], 0
+    # batched drop-in's place; each image's device keep-list is compared.
+    batched, lists, skipped = nms_torch.oks_nms_device_batched, [], 0
 
-    def host_nms(kpts_db, oks_thre, sigmas=None, pad_to=128, device="cuda"):
+    def host_nms(groups, oks_thre, sigmas=None, device="cuda"):
         nonlocal skipped
-        host = oks_nms(kpts_db, oks_thre, sigmas)
-        if oks_margin(kpts_db, oks_thre) > OKS_MARGIN:
-            lists.append((device_nms(kpts_db, oks_thre, sigmas, pad_to,
-                                     device), host))
-        else:
-            skipped += 1
-        return host
+        hosts = [oks_nms(g, oks_thre, sigmas) for g in groups]
+        for g, dev, host in zip(groups, batched(groups, oks_thre, sigmas,
+                                                device), hosts):
+            if oks_margin(g, oks_thre) > OKS_MARGIN:
+                lists.append((dev, host))
+            else:
+                skipped += 1
+        return hosts
 
-    with mock.patch.object(nms_torch, "oks_nms_device", host_nms):
+    with mock.patch.object(nms_torch, "oks_nms_device_batched", host_nms):
         nv_host, _ = evaluate(cfg, preds, str(out_dir / "host"), boxes, paths)
     bad = sum(d != h for d, h in lists)
     if bad or not lists:
@@ -761,51 +1018,45 @@ def phase_coco_planted(cfg, gt, device, out_dir, totals) -> None:
     if list(nv.items()) != list(nv_host.items()) or not nv["AP"] > 0.5:
         raise AssertionError(f"coco: device-NMS stats {dict(nv)} != host-"
                              f"NMS stats {dict(nv_host)} or AP <= 0.5")
-    if not counts["pairwise_oks"] == counts["greedy_nms_mask"] == \
-            on_card(device, images):
-        raise AssertionError(f"coco: OKS/greedy launches {counts} for "
-                             f"{images} images")
+    if counts != expected(device, oks_nms_segments=1):
+        raise AssertionError(f"coco: launches {counts} for one evaluated "
+                             f"set of {images} images")
     log("coco", f"planted detections: AP {nv['AP']:.4f} == host-NMS run's "
-        f"(all 10 stats equal); pairwise_oks {counts['pairwise_oks']} and "
-        f"greedy {counts['greedy_nms_mask']} launches == {images} images")
+        f"(all 10 stats equal); oks_nms_segments "
+        f"{counts['oks_nms_segments']} launch for {images} images, "
+        f"pairwise_oks {counts['pairwise_oks']}, greedy "
+        f"{counts['greedy_nms_mask']}")
 
     # NMS cost per image on the host clock, warm, each call ending in its
-    # keep-mask download; against the host float64 oks_nms
+    # keep-mask download: the batched drop-in over the set, its one-image
+    # case per image, and the host float64 oks_nms
     groups = rescore_and_nms(preds, boxes, paths, in_vis_thre=
                              cfg.TEST.IN_VIS_THRE, oks_thre=2.0,
                              device=device)
-    per = {"device": [], "host": []}
+    per = {"batched": [], "one image": [], "host": []}
+    batched(groups, thresh, device=device)
+    for _ in range(5):
+        t0 = time.perf_counter()
+        batched(groups, thresh, device=device)
+        per["batched"].append((time.perf_counter() - t0) * 1e3 / len(groups))
     for img in groups:
-        device_nms(img, thresh, device=device)
-        for name, fn in (("device", lambda: device_nms(img, thresh,
-                                                       device=device)),
+        for name, fn in (("one image", lambda: nms_torch.oks_nms_device(
+                img, thresh, device=device)),
                          ("host", lambda: oks_nms(img, thresh))):
             t0 = time.perf_counter()
             fn()
             per[name].append((time.perf_counter() - t0) * 1e3)
-    log("coco", f"NMS per image (host clock, median of {len(groups)} "
-        f"images of {min(map(len, groups))}-{max(map(len, groups))} "
-        f"detections): oks_nms_device {np.median(per['device']):.4f} ms "
-        f"(pack, one upload, two launches, one keep-mask download), host "
-        f"float64 oks_nms {np.median(per['host']):.4f} ms")
+    log("coco", f"NMS per image (host clock, {len(groups)} images of "
+        f"{min(map(len, groups))}-{max(map(len, groups))} detections): "
+        f"oks_nms_device_batched over the set {np.median(per['batched']):.4f}"
+        f" ms (median of 5; one pack, upload, launch and download), "
+        f"oks_nms_device per image {np.median(per['one image']):.4f} ms "
+        f"(median), host float64 oks_nms {np.median(per['host']):.4f} ms "
+        f"(median)")
     if device.type == "cuda":
-        from fhpe_tpu_torch.utils.profiling import busy_ms, device_events
-        walls = []
-
-        def all_images():
-            t0 = time.perf_counter()
-            for img in groups:
-                device_nms(img, thresh, device=device)
-            walls.append((time.perf_counter() - t0) * 1e3)
-
-        events = device_events(all_images)
-        busy = busy_ms(events)
-        copies = sum(float(e["dur"]) for e in events
-                     if e["cat"] == "gpu_memcpy") / 1e3
-        log("coco", f"NMS of all {len(groups)} images under the profiler: "
-            f"{walls[0]:.3f} ms, device busy {busy:.3f} ms (idle share "
-            f"{1 - busy / walls[0]:.3f}), of which memcpy {copies:.3f} ms; "
-            f"{len(events) / len(groups):.1f} device ops per image")
+        log("coco", f"batched NMS of all {len(groups)} images under the "
+            f"profiler: " + traced_nms(lambda: batched(groups, thresh,
+                                                       device=device)))
 
 
 def phase_coco_predictor(p, cfg, gt, device, out_dir, totals) -> None:
@@ -834,10 +1085,9 @@ def phase_coco_predictor(p, cfg, gt, device, out_dir, totals) -> None:
 
     (nv, _), counts = main_path_run(totals, run)
     chunks, images = -(-len(boxes) // p.batch_size), len(set(paths))
-    if counts["decode_heatmaps"] != on_card(device, chunks) or not \
-            counts["pairwise_oks"] == counts["greedy_nms_mask"] == \
-            on_card(device, images) or counts["branch_chain_eval"] != \
-            on_card(device, chains_per_chunk(p) * chunks):
+    if counts != expected(device, decode_heatmaps=chunks,
+                          oks_nms_segments=1,
+                          branch_chain_eval=chains_per_chunk(p) * chunks):
         raise AssertionError(f"coco-w32: launches {counts} for {chunks} "
                              f"chunks and {images} images")
     if len(nv) != 10 or not all(math.isfinite(v) for v in nv.values()):
@@ -1432,7 +1682,7 @@ def phase_eval_coco(phase, cfg, model, device, out_dir, totals) -> None:
     per_batch = {"branch_chain_eval": 2 * len(fused_chains(model)),
                  "decode_heatmaps": K1_PER_EVAL_BATCH,
                  **fwd_launches(model, compute_dtype(cfg, device), 2)}
-    want = expected(device, pairwise_oks=images, greedy_nms_mask=images,
+    want = expected(device, oks_nms_segments=1,
                     **{k: v * n for k, v in per_batch.items()})
     if counts != want:
         raise AssertionError(f"{phase}: launches {counts}, want {want}")
@@ -1445,7 +1695,8 @@ def phase_eval_coco(phase, cfg, model, device, out_dir, totals) -> None:
     log(phase, f"{n} batches of {len(batches[0]['valid'])} ({people} "
         f"people, {images} images, flip test on): launches per batch "
         + ", ".join(f"{k} {v}" for k, v in per_batch.items() if v)
-        + f"; OKS/greedy {counts['pairwise_oks']}/"
+        + f"; oks_nms_segments {counts['oks_nms_segments']} for {images} "
+        f"images, OKS/greedy {counts['pairwise_oks']}/"
         f"{counts['greedy_nms_mask']}; loss {np.mean(losses):.6f}, PCK "
         f"hits/valids {hits}/{valids}; 10 stats finite: "
         + ", ".join(f"{k} {v:.4f}" for k, v in nv.items()))
@@ -1830,6 +2081,7 @@ def main() -> int:
              "conv3x3_wgrad": phase_wgrad_kernel(device),
              **phase_chain_kernels(device),
              **phase_conv_kernel(device)}
+    phase_nms_coco_scale(device)
     phase_chain_grad(device)
     totals = Counter()
 

@@ -4,11 +4,11 @@ center/scale, rescoring + OKS-NMS, results JSON.
 A copy of the host parts of ``fhpe_tpu/data/coco.py`` (importing
 ``fhpe_tpu.data`` pulls in JAX), pinned equal to them by
 ``tests/test_torch_port_hygiene.py``.  One change: the hard OKS-NMS of
-:func:`rescore_and_nms` runs on ``device`` through
-``ops/nms_torch.py::oks_nms_device`` (the pairwise OKS kernel and the
-greedy kernel), the drop-in ``fhpe_tpu`` ships for the host ``oks_nms``;
-its keep-lists equal the host's wherever no OKS lies within float32
-rounding of ``oks_thre``.  Soft OKS-NMS stays on the host.
+:func:`rescore_and_nms` runs on ``device`` for all images at once through
+``ops/nms_torch.py::oks_nms_device_batched`` (one launch of the segmented
+OKS-NMS kernel), the batched form of the drop-in ``fhpe_tpu`` ships for
+the host ``oks_nms``; its keep-lists equal the host's wherever no OKS lies
+within float32 rounding of ``oks_thre``.  Soft OKS-NMS stays on the host.
 """
 
 from __future__ import annotations
@@ -65,11 +65,12 @@ def rescore_and_nms(preds, all_boxes, img_paths, num_joints=NUM_JOINTS,
 
     preds: (N, J, 3); all_boxes: (N, 6) [cx, cy, sx, sy, area, score];
     img_paths: list of image paths (image id parsed from the tail).
-    The hard NMS runs on ``device`` (``oks_nms_device``), once per image.
+    The hard NMS runs on ``device`` (``oks_nms_device_batched``), one
+    launch for all images.
     Returns list-of-images, each a list of kept kpt dicts.
     """
     from ..ops.nms import soft_oks_nms
-    from ..ops.nms_torch import oks_nms_device
+    from ..ops.nms_torch import oks_nms_device_batched
 
     kpts = defaultdict(list)
     for idx, kpt in enumerate(preds):
@@ -82,21 +83,20 @@ def rescore_and_nms(preds, all_boxes, img_paths, num_joints=NUM_JOINTS,
             "image": int(img_paths[idx][-16:-4]),
         })
 
-    out = []
-    for img in kpts.keys():
-        img_kpts = kpts[img]
+    groups = list(kpts.values())
+    for img_kpts in groups:
         for p in img_kpts:
             box_score = p["score"]
             ks = [p["keypoints"][j][2] for j in range(num_joints)
                   if p["keypoints"][j][2] > in_vis_thre]
             kpt_score = (sum(ks) / len(ks)) if ks else 0
             p["score"] = kpt_score * box_score
-        if soft:
-            keep = soft_oks_nms(img_kpts, oks_thre)
-        else:
-            keep = oks_nms_device(img_kpts, oks_thre, device=device)
-        out.append(img_kpts if len(keep) == 0 else [img_kpts[k] for k in keep])
-    return out
+    if soft:
+        keeps = [soft_oks_nms(img_kpts, oks_thre) for img_kpts in groups]
+    else:
+        keeps = oks_nms_device_batched(groups, oks_thre, device=device)
+    return [img_kpts if len(keep) == 0 else [img_kpts[k] for k in keep]
+            for img_kpts, keep in zip(groups, keeps)]
 
 
 def write_results_json(oks_nmsed_kpts, res_file, num_joints=NUM_JOINTS,

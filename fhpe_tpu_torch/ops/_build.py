@@ -107,8 +107,13 @@ def load_library() -> ctypes.CDLL:
                                       ctypes.c_float, vp]
     lib.fhpe_pairwise_oks.restype = ci
     lib.fhpe_greedy_nms_mask.argtypes = [vp, vp, vp, vp, ci, ctypes.c_float,
-                                         vp]
+                                         vp, vp]
     lib.fhpe_greedy_nms_mask.restype = ci
+    lib.fhpe_oks_nms_segments.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci,
+                                          ctypes.POINTER(ctypes.c_float),
+                                          ctypes.c_float, ctypes.c_float, ci,
+                                          ci, vp]
+    lib.fhpe_oks_nms_segments.restype = ci
     lib.fhpe_conv3x3_wgrad.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
                                        ci, ci, ctypes.POINTER(ci), vp]
     lib.fhpe_conv3x3_wgrad.restype = ci

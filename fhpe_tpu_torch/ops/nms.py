@@ -4,7 +4,7 @@ A copy of ``fhpe_tpu/ops/nms.py`` (importing ``fhpe_tpu`` pulls in JAX),
 pinned equal to it by ``tests/test_torch_port_hygiene.py``.  Keep-list
 identical to the reference ``lib/nms/nms.py``, with the pairwise loops
 vectorized.  The on-device OKS-NMS that COCO evaluation runs is
-``ops/nms_torch.py::oks_nms_device``; soft OKS-NMS (``TEST.SOFT_NMS``)
+``ops/nms_torch.py::oks_nms_device_batched``; soft OKS-NMS (``TEST.SOFT_NMS``)
 stays here on the host, as in ``fhpe_tpu``.
 
 Reference quirk preserved: ``oks_iou``'s ``in_vis_thre`` filter evaluates

@@ -6,6 +6,7 @@ the port's on the same tiny-HRNet weights and crops -> evaluate -> the
 same 10 stats."""
 
 import json
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -77,6 +78,31 @@ def test_rescore_and_nms_matches_jax(synth, soft):
         full = coco.rescore_and_nms(preds, boxes, paths, in_vis_thre=0.2,
                                     oks_thre=2.0, device="cpu")
         assert min(oks_margin(img, 0.9) for img in full) > 1e-5
+
+
+@pytest.mark.parametrize("oks_thre", [0.5, 0.9])
+def test_rescore_and_nms_one_batched_call_no_launches(synth, oks_thre):
+    """The hard NMS of all images goes through one
+    ``oks_nms_device_batched`` call; on the CPU it runs the plain versions
+    (no kernel launch) and the kept detections equal fhpe_tpu's."""
+    _, _, preds, boxes, paths = synth
+    names = ("pairwise_oks_launches", "greedy_nms_launches",
+             "oks_nms_segment_launches")
+    before = [getattr(nms_torch, n) for n in names]
+    batched = nms_torch.oks_nms_device_batched
+    with mock.patch.object(nms_torch, "oks_nms_device_batched",
+                           side_effect=batched) as spy:
+        got = coco.rescore_and_nms(preds, boxes, paths, in_vis_thre=0.2,
+                                   oks_thre=oks_thre, device="cpu")
+    assert spy.call_count == 1
+    assert len(spy.call_args.args[0]) == len(set(paths)) == len(got)
+    assert [getattr(nms_torch, n) for n in names] == before
+    full = coco.rescore_and_nms(preds, boxes, paths, in_vis_thre=0.2,
+                                oks_thre=2.0, device="cpu")
+    assert min(oks_margin(img, oks_thre) for img in full) > 1e-5
+    _same_nmsed(got, coco_jax.rescore_and_nms(preds, boxes, paths,
+                                              in_vis_thre=0.2,
+                                              oks_thre=oks_thre))
 
 
 def test_results_json_and_eval_match_jax(synth, tmp_path):
