@@ -15,7 +15,11 @@ user calls, with random weights from a seed:
   Adam): ``train.create_train_state`` -> ``make_batch_preprocessor`` ->
   ``make_fpd_train_step`` (the 3x3 filter gradients through the P4
   kernel, the PCK argmaxes through the decode kernel), then validation:
-  ``make_eval_step`` -> ``make_evaluate_fn`` (MPII PCKh);
+  ``make_eval_step`` -> ``make_evaluate_fn`` (MPII PCKh); then both fed by
+  the port's host data path: ``data.make_synthetic_mpii`` writes JPEGs
+  through the image library, ``cli.common.build_loaders`` ->
+  ``BatchLoader`` decodes, augments and warps them, ``device_batch``
+  uploads;
 * FPD training of HRNet-W32 (``w32_fpd_student.yaml``) by W48
   (``w48_256x192_teacher.yaml``, eval mode) on COCO-shaped batches (bf16,
   batch 32, Adam lr 1e-3), the same entry points: every branch chain
@@ -34,7 +38,9 @@ Phases; any failure raises and exits non-zero:
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles ``fhpe_tpu_torch/ops/csrc/*.cu`` with nvcc, one
-   process per source, all started together;
+   process per source, all started together, and beside them the host
+   image library ``fhpe_tpu_torch/ops/cpp`` with g++ (its JPEG route,
+   ``libjpeg`` or ``nvjpeg``, is printed);
 3. decode kernel against its plain PyTorch version on planted edge cases
    (bit-equal), then the device time of both from a profiler trace;
 4. NMS kernels against their plain versions on planted cases (equal
@@ -91,6 +97,16 @@ Phases; any failure raises and exits non-zero:
     a synthetic MPII set, then PCKh through ``make_evaluate_fn``:
     predictions planted at the ground truth give Mean 100, the step's
     own give finite stats;
+14b. the host data path: the image library's route and its JPEG round
+    trip (max and mean difference from the pixels encoded, host ms per
+    encode and decode); ``make_synthetic_mpii`` writes 64 train and 56
+    validation JPEGs at 256x256; the train loader alone (images/s per
+    epoch, ``WORKERS`` threads, nproc); 4 FPD steps fed by ``BatchLoader``
+    batches (P4 59 and decode 2 launches per step, finite losses); the
+    validation loader through ``make_eval_step`` (flip test, a padded last
+    batch, 3 decode launches per batch) to PCKh (finite); then the step's
+    images/s and idle share fed by the loader against the same step on one
+    batch already on the device, in turns;
 15. P5 (the HRNet BasicBlock chain, eval and train entries) against its
     plain versions on every W32 and W48 chain shape at batch 32 and on
     edge cases (B = 1 and 3, C = 8 and 40, 1x1 and 3x130 images), bf16
@@ -158,6 +174,7 @@ import sys
 import tempfile
 import time
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from unittest import mock
 
@@ -197,6 +214,12 @@ P4_PER_STEP = 59           # 3x3 stride-1 convs of the student (tests pin it)
 K1_PER_TRAIN_STEP = 2      # the PCK counts' argmaxes: output and target
 K1_PER_EVAL_BATCH = 3      # the decode and the two PCK argmaxes
 MPII_PEOPLE = 56           # two eval batches of 32, the last one padded
+# phase 14b, the FPD step and MPII validation fed by the port's BatchLoader
+# from JPEGs its synthetic writer put on disk (256x256, the model's input)
+LOADER_TRAIN_IMAGES = 64   # two train batches of 32 per epoch
+LOADER_EPOCHS = 2          # 4 train steps on the main path
+LOADER_TIMED_EPOCHS = 3    # per timing: 6 steps, or 3 epochs of the loader
+LOADER_ROUND_TRIP_IMAGES = 16
 # float32 train-step parity (one FPD step at full width, batch 2, TF32
 # off).  A float32 step is only good to a few percent in its gradients:
 # train-mode BatchNorm over two samples amplifies reduction-order
@@ -1794,6 +1817,177 @@ def phase_eval_mpii(model, device, out_dir, totals) -> None:
         + ", ".join(f"{k} {float(v):.2f}" for k, v in nv.items()))
 
 
+# -- the host data path: BatchLoader feeds the FPD step and validation ---------
+
+def loader_cfgs(root: Path):
+    """The FPD configs of phase 12 (``fpd_cfgs``) on the synthetic MPII
+    sets under ``root``: the student's train set ``train`` (batch
+    ``TRAIN_BATCH``) and, as a clone, its validation set ``valid``; no db
+    cache.  Returns (train cfg, validation cfg, teacher cfg)."""
+    from fhpe_tpu_torch.tools.train_parity import fpd_cfgs
+    scfg, tcfg = fpd_cfgs()
+    scfg.defrost()
+    scfg.DATASET.ROOT = str(root / "train")
+    scfg.DATASET.TRAIN_SET = scfg.DATASET.TEST_SET = "train"
+    scfg.DATASET.CACHE_ROOT = ""
+    scfg.TRAIN.BATCH_SIZE_PER_GPU = TRAIN_BATCH
+    vcfg = scfg.clone()
+    vcfg.DATASET.ROOT = str(root / "valid")
+    vcfg.DATASET.TEST_SET = "valid"
+    scfg.freeze()
+    vcfg.freeze()
+    return scfg, vcfg, tcfg
+
+
+def phase_loader(state, device, totals, label) -> None:
+    """The FPD train step and MPII validation fed by the port's own host
+    data path: ``make_synthetic_mpii`` writes JPEGs through the image
+    library, ``build_loaders`` -> ``BatchLoader`` decodes, augments and
+    warps them in ``WORKERS`` threads, ``device_batch`` uploads."""
+    import os
+
+    import torch
+    from fhpe_tpu_torch.cli.common import (build_loaders, device_batch,
+                                           make_evaluate_fn)
+    from fhpe_tpu_torch.data import MPII_FLIP_PAIRS, make_synthetic_mpii
+    from fhpe_tpu_torch.geometry.flip import flip_pair_permutation
+    from fhpe_tpu_torch.ops import native_image
+    from fhpe_tpu_torch.tools import jpeg_route
+    from fhpe_tpu_torch.train import (make_batch_preprocessor,
+                                      make_eval_step, make_fpd_train_step)
+    from fhpe_tpu_torch.utils.profiling import busy_ms, device_events
+
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        root = Path(tmp)
+        scfg, vcfg, tcfg = loader_cfgs(root)
+        w, h = (int(v) for v in scfg.MODEL.IMAGE_SIZE)
+        rt = jpeg_route.round_trip(jpeg_route.draw_images(
+            LOADER_ROUND_TRIP_IMAGES, w))[0]
+        log("loader", f"image library route {native_image.route()}: "
+            f"{LOADER_ROUND_TRIP_IMAGES} {w}x{w} images encoded at quality "
+            f"95 and decoded differ from the pixels encoded by max "
+            f"{rt['vs_encoded']['max_abs']}, mean "
+            f"{rt['vs_encoded']['mean_abs']:.4f}; host encode "
+            f"{rt['encode_ms']:.3f} ms, decode {rt['decode_ms']:.3f} ms per "
+            f"image; {label}")
+
+        t0 = time.perf_counter()
+        make_synthetic_mpii(str(root / "train"), "train", LOADER_TRAIN_IMAGES,
+                            (h, w), seed=0)
+        make_synthetic_mpii(str(root / "valid"), "valid", MPII_PEOPLE,
+                            (h, w), seed=1)
+        write_s = time.perf_counter() - t0
+        train_loader, _, meta = build_loaders(scfg)
+        _, val_loader, _ = build_loaders(vcfg, train=False)
+        threads = max(2, int(scfg.WORKERS))
+        rates = []
+        for _ in range(LOADER_TIMED_EPOCHS):
+            t0 = time.perf_counter()
+            n = sum(len(b["valid"]) for b in train_loader)
+            rates.append(n / (time.perf_counter() - t0))
+        log("loader", f"wrote {LOADER_TRAIN_IMAGES} + {MPII_PEOPLE} "
+            f"{w}x{h} JPEGs in {write_s:.2f} s; the train loader alone "
+            f"(decode, augment, warp, collate; {threads} threads, nproc "
+            f"{os.cpu_count()}) {', '.join(f'{r:.1f}' for r in rates)} "
+            f"images/s per epoch of {n} on {label}")
+
+        teacher = seeded_model(tcfg, 100).to(device)
+        step = make_fpd_train_step(scfg, teacher, tcfg,
+                                   prepare=make_batch_preprocessor(scfg))
+
+        def train():
+            return [step(state, device_batch(scfg, batch, device))[1]
+                    for _ in range(LOADER_EPOCHS) for batch in train_loader]
+
+        losses, counts = main_path_run(totals, train)
+        steps = len(losses)
+        want = expected(device, conv3x3_wgrad=P4_PER_STEP * steps,
+                        decode_heatmaps=K1_PER_TRAIN_STEP * steps)
+        if steps < 4 or counts != want:
+            raise AssertionError(f"loader: {steps} steps, launches {counts},"
+                                 f" want {want}")
+        vals = [check_finite("loader", m) for m in losses]
+        log("loader", f"{steps} FPD steps on loader batches: loss "
+            + ", ".join(f"{v['loss']:.6f}" for v in vals) + "; launches "
+            f"per step: P4 {counts['conv3x3_wgrad'] / steps:g}, decode "
+            f"{counts['decode_heatmaps'] / steps:g}")
+
+        eval_step = make_eval_step(
+            vcfg, flip_pair_permutation(meta["num_joints"], MPII_FLIP_PAIRS),
+            prepare=make_batch_preprocessor(vcfg))
+
+        def validate():
+            return [eval_step(state.model, device_batch(vcfg, batch, device,
+                                                        for_eval=True))
+                    for batch in val_loader]
+
+        outs, counts = main_path_run(totals, validate)
+        want = expected(device, decode_heatmaps=K1_PER_EVAL_BATCH * len(outs))
+        if counts != want:
+            raise AssertionError(f"loader eval: launches {counts}, want "
+                                 f"{want}")
+        preds = torch.cat([torch.cat([o["preds"], o["maxvals"][..., None]],
+                                     -1) for o in outs]
+                          )[:MPII_PEOPLE].cpu().numpy()
+        nv, perf = make_evaluate_fn(vcfg, device=device)(
+            vcfg, preds, str(root), None, None)
+        if preds.shape != (MPII_PEOPLE, 16, 3) or not np.isfinite(
+                preds).all() or not all(math.isfinite(float(v))
+                                        for v in nv.values()):
+            raise AssertionError(f"loader eval: preds {preds.shape}, PCKh "
+                                 f"{dict(nv)}")
+        log("loader", f"validation through the loader: {len(outs)} batches "
+            f"of {vcfg.TEST.BATCH_SIZE_PER_GPU} ({MPII_PEOPLE} people, flip "
+            f"test on), decode launches {counts['decode_heatmaps']}; PCKh "
+            + ", ".join(f"{k} {float(v):.2f}" for k, v in nv.items())
+            + f" on {label}")
+
+        resident = device_batch(scfg, next(iter(train_loader)), device)
+
+        def fed_by_loader():
+            for _ in range(LOADER_TIMED_EPOCHS):
+                for batch in train_loader:
+                    step(state, device_batch(scfg, batch, device))
+
+        def fed_resident():
+            for _ in range(LOADER_TIMED_EPOCHS * len(train_loader)):
+                step(state, resident)
+
+        n_img = LOADER_TIMED_EPOCHS * len(train_loader) * TRAIN_BATCH
+        feeds = {"loader": fed_by_loader, "resident": fed_resident}
+        rates = {name: [] for name in feeds}
+        for name in ("loader", "resident", "resident", "loader"):
+            sync(device)
+            t0 = time.perf_counter()
+            feeds[name]()
+            sync(device)
+            rates[name].append(n_img / (time.perf_counter() - t0))
+        idle = {}
+        if device.type == "cuda":
+            for name, fn in feeds.items():
+                walls = []
+
+                def timed(fn=fn, walls=walls):
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+
+                busy = busy_ms(device_events(timed))
+                idle[name] = f"{1 - busy / walls[0]:.3f}"
+        log("loader", "warm FPD step (bf16, batch "
+            f"{TRAIN_BATCH}, {n_img} images per run, in turns) fed by the "
+            "loader "
+            + ", ".join(f"{r:.1f}" for r in rates["loader"])
+            + " images/s (idle share " + idle.get("loader", "not measured")
+            + "), by one batch already on the device "
+            + ", ".join(f"{r:.1f}" for r in rates["resident"])
+            + " images/s (idle share " + idle.get("resident", "not measured")
+            + f"); nproc {os.cpu_count()}, {threads} loader threads; {label}")
+        train_loader.close()
+        val_loader.close()
+
+
 # -- PoseResNet-50: conv3x3_fwd ----------------------------------------------
 
 def phase_conv_kernel(device) -> dict:
@@ -2060,7 +2254,7 @@ def main() -> int:
         return 2
     from fhpe_tpu_torch.data.coco_synthetic import (synthetic_coco_gt,
                                                     write_coco_gt)
-    from fhpe_tpu_torch.ops import _build
+    from fhpe_tpu_torch.ops import _build, native_image
     from fhpe_tpu_torch.tools.train_parity import hrnet_fpd_cfgs, rn50_cfg
     from fhpe_tpu_torch.utils.profiling import card_label
 
@@ -2071,10 +2265,14 @@ def main() -> int:
         f"CUDA {torch.version.cuda})")
 
     t0 = time.perf_counter()
-    lib_path = _build.build()
-    _build.load_library()
-    log("build", f"{lib_path.relative_to(REPO)} in "
-        f"{time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(1) as pool:     # g++ beside the nvcc processes
+        image_lib = pool.submit(native_image.build)
+        lib_path = _build.build()
+        _build.load_library()
+        image_path = image_lib.result()
+    log("build", f"{lib_path.relative_to(REPO)} and "
+        f"{image_path.relative_to(REPO)} (JPEG route "
+        f"{native_image.route()}) in {time.perf_counter() - t0:.2f} s")
 
     stats = {"decode_heatmaps": phase_kernel_vs_plain(device),
              **phase_nms_kernels(device),
@@ -2114,6 +2312,7 @@ def main() -> int:
     phase_f32_train_parity(device)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         phase_eval_mpii(state.model, device, Path(tmp), totals)
+    phase_loader(state, device, totals, label)
 
     state = phase_hrnet_fpd_train(device, totals, label)
     phase_hrnet_f32_parity(device)

@@ -1,10 +1,11 @@
-"""COCO keypoints host glue for evaluation: annotation index, bbox ->
-center/scale, rescoring + OKS-NMS, results JSON.
+"""COCO keypoints dataset on the host: annotation index, db builders (gt
+and detector boxes), bbox -> center/scale, rescoring + OKS-NMS, results
+JSON.
 
-A copy of the host parts of ``fhpe_tpu/data/coco.py`` (importing
-``fhpe_tpu.data`` pulls in JAX), pinned equal to them by
-``tests/test_torch_port_hygiene.py``.  One change: the hard OKS-NMS of
-:func:`rescore_and_nms` runs on ``device`` for all images at once through
+A copy of ``fhpe_tpu/data/coco.py`` (importing ``fhpe_tpu.data`` pulls in
+JAX), pinned equal to it by ``tests/test_torch_port_hygiene.py``.  One
+change: the hard OKS-NMS of :func:`rescore_and_nms` runs on ``device``
+for all images at once through
 ``ops/nms_torch.py::oks_nms_device_batched`` (one launch of the segmented
 OKS-NMS kernel), the batched form of the drop-in ``fhpe_tpu`` ships for
 the host ``oks_nms``; its keep-lists equal the host's wherever no OKS lies
@@ -14,12 +15,23 @@ within float32 rounding of ``oks_thre``.  Soft OKS-NMS stays on the host.
 from __future__ import annotations
 
 import json
+import logging
 import os
+import pickle
 from collections import defaultdict
 
 import numpy as np
 
+logger = logging.getLogger(__name__)
+
 NUM_JOINTS = 17
+FLIP_PAIRS = [[1, 2], [3, 4], [5, 6], [7, 8], [9, 10], [11, 12], [13, 14],
+              [15, 16]]
+UPPER_BODY_IDS = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10)
+LOWER_BODY_IDS = (11, 12, 13, 14, 15, 16)
+JOINTS_WEIGHT = np.array(
+    [1., 1., 1., 1., 1., 1., 1., 1.2, 1.2, 1.5, 1.5, 1., 1., 1.2, 1.2,
+     1.5, 1.5], dtype=np.float32).reshape((NUM_JOINTS, 1))
 
 
 class CocoIndex:
@@ -56,6 +68,102 @@ def xywh2cs(x, y, w, h, aspect_ratio, pixel_std: float = 200.0):
     if center[0] != -1:
         scale = scale * 1.25
     return center, scale
+
+
+def image_path_from_index(root, image_set, index, data_format="jpg"):
+    """images/<set>/%012d.jpg path convention (coco.py:244-257)."""
+    file_name = "%012d.jpg" % index
+    if "2014" in image_set:
+        file_name = "COCO_%s_" % image_set + file_name
+    prefix = "test2017" if "test" in image_set else image_set
+    data_name = prefix + ".zip@" if data_format == "zip" else prefix
+    return os.path.join(root, "images", data_name, file_name)
+
+
+def _ann_file(root, image_set):
+    prefix = ("person_keypoints" if "test" not in image_set else "image_info")
+    return os.path.join(root, "annotations", f"{prefix}_{image_set}.json")
+
+
+def build_gt_db(root, image_set, aspect_ratio, data_format="jpg",
+                cache_root=None, coco: CocoIndex | None = None):
+    """Ground-truth-bbox db (coco.py:149-221)."""
+    if cache_root:
+        db_file = os.path.join(cache_root, f"coco_cached_{image_set}_db.pkl")
+        if os.path.exists(db_file):
+            with open(db_file, "rb") as fd:
+                return pickle.load(fd)
+
+    coco = coco or CocoIndex(_ann_file(root, image_set))
+    gt_db = []
+    for index in coco.img_ids:
+        im = coco.images[index]
+        width, height = im["width"], im["height"]
+        for obj in coco.annotations(index, iscrowd=False):
+            if obj.get("category_id") != coco.person_cat_id:
+                continue
+            x, y, w, h = obj["bbox"]
+            x1, y1 = max(0, x), max(0, y)
+            x2 = min(width - 1, x1 + max(0, w - 1))
+            y2 = min(height - 1, y1 + max(0, h - 1))
+            if obj.get("area", 0) <= 0 or x2 < x1 or y2 < y1:
+                continue
+            if max(obj["keypoints"]) == 0:
+                continue
+
+            joints_3d = np.zeros((NUM_JOINTS, 3), dtype=np.float64)
+            joints_3d_vis = np.zeros((NUM_JOINTS, 3), dtype=np.float64)
+            kp = obj["keypoints"]
+            for i in range(NUM_JOINTS):
+                joints_3d[i, 0] = kp[i * 3 + 0]
+                joints_3d[i, 1] = kp[i * 3 + 1]
+                vis = min(kp[i * 3 + 2], 1)
+                joints_3d_vis[i, 0] = vis
+                joints_3d_vis[i, 1] = vis
+
+            center, scale = xywh2cs(x1, y1, x2 - x1, y2 - y1, aspect_ratio)
+            gt_db.append({
+                "image": image_path_from_index(root, image_set, index,
+                                               data_format),
+                "center": center,
+                "scale": scale,
+                "joints_3d": joints_3d,
+                "joints_3d_vis": joints_3d_vis,
+                "filename": "",
+                "imgnum": 0,
+            })
+
+    if cache_root:
+        os.makedirs(cache_root, exist_ok=True)
+        with open(db_file, "wb") as fd:
+            pickle.dump(gt_db, fd)
+    return gt_db
+
+
+def build_detection_db(root, image_set, bbox_file, aspect_ratio,
+                       image_thre=0.0, data_format="jpg"):
+    """Detector-bbox db for top-down eval (coco.py:259-300)."""
+    with open(bbox_file) as f:
+        all_boxes = json.load(f)
+    kpt_db = []
+    for det in all_boxes:
+        if det["category_id"] != 1:
+            continue
+        if det["score"] < image_thre:
+            continue
+        center, scale = xywh2cs(*det["bbox"][:4], aspect_ratio)
+        kpt_db.append({
+            "image": image_path_from_index(root, image_set, det["image_id"],
+                                           data_format),
+            "center": center,
+            "scale": scale,
+            "score": det["score"],
+            "joints_3d": np.zeros((NUM_JOINTS, 3), dtype=np.float64),
+            "joints_3d_vis": np.ones((NUM_JOINTS, 3), dtype=np.float64),
+        })
+    logger.info("=> total boxes after score filter @%s: %d", image_thre,
+                len(kpt_db))
+    return kpt_db
 
 
 def rescore_and_nms(preds, all_boxes, img_paths, num_joints=NUM_JOINTS,

@@ -1,26 +1,86 @@
-"""MPII PCKh evaluation (host numpy + scipy).
+"""MPII dataset: db builder and PCKh evaluation (host numpy + scipy).
 
-A copy of ``evaluate`` and its constants from ``fhpe_tpu/data/mpii.py``
-(``fhpe_tpu.data`` imports JAX in its package), pinned to the original by
-source equality in ``tests/test_torch_port_hygiene.py``.  The db builder
-comes with the port's CLI slice (``ROADMAP.md`` queue A, item 7).
+A copy of ``fhpe_tpu/data/mpii.py`` (``fhpe_tpu.data`` imports JAX in its
+package): :func:`build_db` (the reference's ``lib/dataset/mpii.py``
+index, center/scale adjustment and pickle cache), :func:`evaluate` and
+their constants, pinned to the original by source equality in
+``tests/test_torch_port_hygiene.py``.
 """
 
 from __future__ import annotations
 
+import json
+import logging
 import os
+import pickle
 from collections import OrderedDict
 
 import numpy as np
 
+logger = logging.getLogger(__name__)
+
 NUM_JOINTS = 16
 FLIP_PAIRS = [[0, 5], [1, 4], [2, 3], [10, 15], [11, 14], [12, 13]]
+PARENT_IDS = [1, 2, 6, 6, 3, 4, 6, 6, 7, 8, 11, 12, 7, 7, 13, 14]
+UPPER_BODY_IDS = (7, 8, 9, 10, 11, 12, 13, 14, 15)
+LOWER_BODY_IDS = (0, 1, 2, 3, 4, 5, 6)
 
 # gt_valid.mat joint order (mpii.py:134-147 resolves these by name; the
 # indices are fixed by the MPII toolkit convention)
 JOINT_NAMES = ["rank", "rkne", "rhip", "lhip", "lkne", "lank", "pelvis",
                "thorax", "upper_neck", "head", "rwri", "relb", "rsho",
                "lsho", "lelb", "lwri"]
+
+
+def build_db(root: str, image_set: str, data_format: str = "jpg",
+             cache_root: str | None = None):
+    """List of sample records (mpii.py:56-107), with optional pickle cache."""
+    if cache_root:
+        db_file = os.path.join(cache_root, f"mpii_cached_{image_set}_db.pkl")
+        if os.path.exists(db_file):
+            with open(db_file, "rb") as fd:
+                return pickle.load(fd)
+
+    file_name = os.path.join(root, "annot", image_set + ".json")
+    with open(file_name) as f:
+        anno = json.load(f)
+
+    gt_db = []
+    for a in anno:
+        c = np.array(a["center"], dtype=np.float64)
+        s = np.array([a["scale"], a["scale"]], dtype=np.float64)
+        if c[0] != -1:
+            c[1] = c[1] + 15 * s[1]
+            s = s * 1.25
+        c = c - 1  # matlab 1-based -> 0-based
+
+        joints_3d = np.zeros((NUM_JOINTS, 3), dtype=np.float64)
+        joints_3d_vis = np.zeros((NUM_JOINTS, 3), dtype=np.float64)
+        if image_set != "test":
+            joints = np.array(a["joints"], dtype=np.float64)
+            joints[:, 0:2] = joints[:, 0:2] - 1
+            joints_vis = np.array(a["joints_vis"], dtype=np.float64)
+            assert len(joints) == NUM_JOINTS
+            joints_3d[:, 0:2] = joints[:, 0:2]
+            joints_3d_vis[:, 0] = joints_vis
+            joints_3d_vis[:, 1] = joints_vis
+
+        image_dir = "images.zip@" if data_format == "zip" else "images"
+        gt_db.append({
+            "image": os.path.join(root, image_dir, a["image"]),
+            "center": c,
+            "scale": s,
+            "joints_3d": joints_3d,
+            "joints_3d_vis": joints_3d_vis,
+            "filename": "",
+            "imgnum": 0,
+        })
+
+    if cache_root:
+        os.makedirs(cache_root, exist_ok=True)
+        with open(db_file, "wb") as fd:
+            pickle.dump(gt_db, fd)
+    return gt_db
 
 
 # PCKh protocol constants (the MPII matlab toolkit convention the reference

@@ -3,7 +3,9 @@
 A copy of ``fhpe_tpu/geometry/affine.py`` (``get_affine_transform``,
 ``affine_transform``, ``transform_preds``): ``fhpe_tpu.geometry`` imports
 JAX in its package ``__init__``.  The two are held bit-equal by
-``tests/test_torch_port_hygiene.py``.
+``tests/test_torch_port_hygiene.py``.  ``fhpe_tpu`` solves the
+correspondence with ``cv2.getAffineTransform`` where cv2 imports; the
+port replays that solve's arithmetic in Python instead.
 
 Conventions (identical to the reference):
 * ``scale`` is in units of 200 px (``pixel_std``): box side = scale * 200.
@@ -32,25 +34,53 @@ def _third_point(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return b + np.array([-d[1], d[0]], dtype=d.dtype)
 
 
+# OpenCV's LU (matrix_decomp.cpp::LUImpl) gives up on a pivot below this
+_LU_EPS = np.finfo(np.float64).eps * 100
+
+
 def _solve_affine(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
     """2x3 affine T with T @ [src_i, 1]^T = dst_i for three point pairs.
 
-    Points are quantized to float32 first, as cv2.getAffineTransform
-    receives them in the reference.  cv2's solver is used when importable
-    (its LU pivoting order decides the last bits, which the reference's
-    cv2.warpAffine sampling sees); the closed-form float64 solve is the
-    dependency-free fallback.
+    ``cv2.getAffineTransform``'s arithmetic, replayed in float64 without
+    cv2 (the port imports none): the points quantized to float32, as the
+    reference's float32 point arrays reach cv2; the 6x6 system of
+    imgwarp.cpp; OpenCV's LU solve (partial pivoting, first largest pivot,
+    ``alpha = a[j][i] * (-1 / a[i][i])`` row updates, back substitution
+    dividing by the pivot).  The same operations in the same order give
+    the same bits as cv2 (held to it in
+    ``tests/test_torch_port_hygiene.py``): the last bits decide isolated
+    warped pixels at exact bilinear ties.  A singular system gives zeros,
+    as ``cv2.solve`` does.
     """
-    src32 = src.astype(np.float32)
-    dst32 = dst.astype(np.float32)
-    try:
-        import cv2
-        return np.asarray(cv2.getAffineTransform(src32, dst32),
-                          dtype=np.float64)
-    except ImportError:
-        a = np.concatenate([src32.astype(np.float64), np.ones((3, 1))],
-                           axis=1)  # (3, 3)
-        return np.linalg.solve(a, dst32.astype(np.float64)).T
+    src32 = np.asarray(src, dtype=np.float32)
+    dst32 = np.asarray(dst, dtype=np.float32)
+    a, b = [], []
+    for i in range(3):
+        x, y = float(src32[i, 0]), float(src32[i, 1])
+        a += [[x, y, 1.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, x, y, 1.0]]
+        b += [float(dst32[i, 0]), float(dst32[i, 1])]
+    m = len(a)
+    for i in range(m):
+        k = i
+        for j in range(i + 1, m):
+            if abs(a[j][i]) > abs(a[k][i]):
+                k = j
+        if abs(a[k][i]) < _LU_EPS:
+            return np.zeros((2, 3))
+        a[i], a[k] = a[k], a[i]
+        b[i], b[k] = b[k], b[i]
+        d = -1.0 / a[i][i]
+        for j in range(i + 1, m):
+            alpha = a[j][i] * d
+            for col in range(i + 1, m):
+                a[j][col] += alpha * a[i][col]
+            b[j] += alpha * b[i]
+    for i in range(m - 1, -1, -1):
+        s = b[i]
+        for col in range(i + 1, m):
+            s -= a[i][col] * b[col]
+        b[i] = s / a[i][i]
+    return np.array(b, dtype=np.float64).reshape(2, 3)
 
 
 def get_affine_transform(center, scale, rot, output_size, shift=(0.0, 0.0), inv=False):

@@ -84,7 +84,8 @@ def create_train_state(cfg, model: Optional[nn.Module] = None, seed: int = 0,
     if int(cfg.TPU.NUM_DEVICES) > 1:
         raise NotImplementedError(
             "training over several devices is not ported yet (ROADMAP.md "
-            "queue A, item 11); set TPU.NUM_DEVICES to 1 or -1")
+            "queue A, the multi-device steps); set TPU.NUM_DEVICES to 1 "
+            "or -1")
     if model is None:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)

@@ -61,7 +61,8 @@ def make_batch_preprocessor(cfg, joints_weight=None):
         if "canvas" in batch:
             raise NotImplementedError(
                 "TPU.DEVICE_WARP (warping crops from the letterbox canvas on "
-                "the device) is not ported yet (ROADMAP.md queue A, item 6)")
+                "the device) is not ported yet (ROADMAP.md queue A, the "
+                "device warp)")
         if "target" in batch:
             return batch
         out = dict(batch)

@@ -1,30 +1,44 @@
-"""The port stands without JAX, and its copies of fhpe_tpu's host code
-(config, affine geometry, dataset constants, host NMS, COCO glue and
-evaluator, MPII PCKh, the LR schedule) stay equal to the originals."""
+"""The port stands without JAX, cv2 or PIL, and its copies of fhpe_tpu's
+host code (config, affine geometry, dataset constants, host NMS, COCO glue
+and evaluator, MPII PCKh, the LR schedule, the host data path: db
+builders, filters, loader, zip reader, the warp's C text) stay equal to
+the originals."""
 
 import glob
 import inspect
 import os
+import re
 import subprocess
 import sys
 
 import numpy as np
 import pytest
 
+import fhpe_tpu.data as data_jax
 from fhpe_tpu import config as config_jax
+from fhpe_tpu.cli import common as common_jax
 from fhpe_tpu.data import coco as coco_jax
 from fhpe_tpu.data import dataset_meta as dataset_meta_jax
+from fhpe_tpu.data import filters as filters_jax
+from fhpe_tpu.data import loader as loader_jax
 from fhpe_tpu.data import mpii as mpii_jax
 from fhpe_tpu.eval import coco_eval as coco_eval_jax
 from fhpe_tpu.geometry import affine as affine_jax
+from fhpe_tpu.geometry import flip as flip_jax
+from fhpe_tpu.geometry import targets as targets_jax
+from fhpe_tpu.ops import native_image as native_image_jax
 from fhpe_tpu.ops import nms as nms_jax
 from fhpe_tpu.train import state as state_jax
+from fhpe_tpu.utils import zipreader as zipreader_jax
+import fhpe_tpu_torch.data as data
 from fhpe_tpu_torch import config
-from fhpe_tpu_torch.data import coco, dataset_meta, mpii
+from fhpe_tpu_torch.cli import common
+from fhpe_tpu_torch.data import coco, dataset_meta, filters, loader, mpii
 from fhpe_tpu_torch.eval import coco_eval
-from fhpe_tpu_torch.geometry import affine
-from fhpe_tpu_torch.ops import nms
+from fhpe_tpu_torch.geometry import affine, flip, targets
+from fhpe_tpu_torch.ops import native_image, nms
 from fhpe_tpu_torch.train import state
+from fhpe_tpu_torch.utils import zipreader
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXPERIMENTS = sorted(os.path.relpath(p, REPO) for p in glob.glob(
@@ -52,7 +66,7 @@ def test_port_imports_no_jax():
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'fhpe_tpu', "
             "'scripts', 'fused_block', 'fused_block_kernels', "
-            "'dw_pallas_probe'))\n"
+            "'dw_pallas_probe', 'cv2', 'PIL'))\n"
             "assert not bad, bad\n"
             "print(len(names))\n")
     env = dict(os.environ, FHPE_PLATFORM="cpu")
@@ -111,12 +125,31 @@ def test_affine_copy_bit_equal(dtype):
             affine_jax.transform_preds(pts, center, scale, size))
 
 
+def test_affine_solve_equals_cv2():
+    """``_solve_affine`` replays ``cv2.getAffineTransform`` bit for bit:
+    random triangles at several magnitudes, and a singular one."""
+    cv2 = pytest.importorskip("cv2")
+    rng = np.random.RandomState(1)
+    for i in range(1000):
+        src = rng.normal(300, 200, (3, 2)) * (1e-3, 1.0, 1e3)[i % 3]
+        dst = rng.uniform(-50, 300, (3, 2))
+        np.testing.assert_array_equal(
+            affine._solve_affine(src, dst),
+            cv2.getAffineTransform(src.astype(np.float32),
+                                   dst.astype(np.float32)))
+    line = np.array([[0.0, 0.0], [1.0, 1.0], [2.0, 2.0]])
+    np.testing.assert_array_equal(affine._solve_affine(line, line),
+                                  np.zeros((2, 3)))
+
+
 @pytest.mark.parametrize("name", ["mpii", "coco", "synthetic"])
 def test_dataset_meta_copy_equal(name):
     got, ref = dataset_meta(name), dataset_meta_jax(name)
-    assert got.keys() == {"num_joints", "flip_pairs"}
+    assert got.keys() == ref.keys() == {
+        "num_joints", "flip_pairs", "upper_body_ids", "lower_body_ids",
+        "joints_weight"}
     for k in got:
-        assert got[k] == ref[k], k
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
     with pytest.raises(KeyError):
         dataset_meta("lsp")
 
@@ -143,13 +176,19 @@ def test_host_nms_copy_equal(name):
 
 
 @pytest.mark.parametrize("name", ["CocoIndex", "xywh2cs",
-                                  "write_results_json"])
+                                  "write_results_json",
+                                  "image_path_from_index", "_ann_file",
+                                  "build_gt_db", "build_detection_db"])
 def test_coco_host_copy_equal(name):
     """The host parts of ``data/coco.py`` are copies; ``rescore_and_nms``
     differs only in running its hard NMS through ``oks_nms_device``
     (held equal in tests/test_torch_coco_eval.py)."""
     _same_source(getattr(coco, name), getattr(coco_jax, name))
     assert coco.NUM_JOINTS == coco_jax.NUM_JOINTS
+    for const in ("FLIP_PAIRS", "UPPER_BODY_IDS", "LOWER_BODY_IDS",
+                  "JOINTS_WEIGHT"):
+        np.testing.assert_array_equal(getattr(coco, const),
+                                      getattr(coco_jax, const))
     for box in ([10, 20, 30, 90], [0, 0, 200, 50], [5.5, 6, 48, 64]):
         for got, ref in zip(coco.xywh2cs(*box, 0.75),
                             coco_jax.xywh2cs(*box, 0.75)):
@@ -169,9 +208,12 @@ def test_coco_eval_copy_equal(name):
 
 
 def test_mpii_eval_copy_equal():
-    """``data/mpii.py`` is a copy of ``evaluate`` and its constants."""
+    """``data/mpii.py`` is a copy of ``build_db``, ``evaluate`` and their
+    constants."""
     _same_source(mpii.evaluate, mpii_jax.evaluate)
-    for const in ("NUM_JOINTS", "FLIP_PAIRS", "JOINT_NAMES",
+    _same_source(mpii.build_db, mpii_jax.build_db)
+    for const in ("NUM_JOINTS", "FLIP_PAIRS", "JOINT_NAMES", "PARENT_IDS",
+                  "UPPER_BODY_IDS", "LOWER_BODY_IDS",
                   "PCKH_HEADSIZE_BIAS", "PCKH_THRESHOLD", "PCKH_EXCLUDED",
                   "PCKH_AT_01_BIN", "PCKH_SUMMARY_GROUPS"):
         assert getattr(mpii, const) == getattr(mpii_jax, const), const
@@ -179,3 +221,58 @@ def test_mpii_eval_copy_equal():
 
 def test_lr_schedule_copy_equal():
     _same_source(state.lr_for_epoch, state_jax.lr_for_epoch)
+
+
+# the host data path: (port object, fhpe_tpu object) pinned by source
+DATA_PATH_COPIES = {
+    "select_data": (filters.select_data, filters_jax.select_data),
+    "dataset_meta": (data.dataset_meta, data_jax.dataset_meta),
+    "build_db": (data.build_db, data_jax.build_db),
+    "_build_db_raw": (data._build_db_raw, data_jax._build_db_raw),
+    "fliplr_joints": (flip.fliplr_joints, flip_jax.fliplr_joints),
+    "generate_target_np": (targets.generate_target_np,
+                           targets_jax.generate_target_np),
+    "_jpeg_dims_fast": (native_image._jpeg_dims_fast,
+                        native_image_jax._jpeg_dims_fast),
+    **{f"zipreader.{n}": (getattr(zipreader, n), getattr(zipreader_jax, n))
+       for n in ("split_path", "_get_zip", "read_bytes", "xmlread")},
+    **{f"loader.{n}": (getattr(loader, n), getattr(loader_jax, n))
+       for n in ("_return_cache_bytes", "half_body_transform",
+                 "compose_mirror", "collate", "BatchLoader")},
+    **{f"PoseDataSource.{n}": (getattr(loader.PoseDataSource, n),
+                               getattr(loader_jax.PoseDataSource, n))
+       for n in ("_cache_reserve", "_cache_put", "__len__",
+                 "draw_augment_params")},
+    **{f"common.{n}": (getattr(common, n), getattr(common_jax, n))
+       for n in ("train_batch_keys", "eval_batch_transform")},
+}
+
+
+@pytest.mark.parametrize("name", sorted(DATA_PATH_COPIES))
+def test_data_path_copy_equal(name):
+    _same_source(*DATA_PATH_COPIES[name])
+
+
+def _warp_text(path):
+    """``fhpe_warp_affine_u8``'s text, signature to closing brace."""
+    with open(os.path.join(REPO, path)) as f:
+        src = f.read()
+    start = src.index("void fhpe_warp_affine_u8(")
+    return src[start:src.index("\n}\n", start) + 3]
+
+
+def test_warp_c_text_equal():
+    assert _warp_text("fhpe_tpu_torch/ops/cpp/imagedec.cpp") == \
+        _warp_text("fhpe_tpu/ops/cpp/imagedec.cpp")
+    assert native_image_jax._SOF_MARKERS == native_image._SOF_MARKERS
+
+
+def test_port_sources_import_no_cv2_or_pil():
+    """Not at import time (``test_port_imports_no_jax``) and not inside a
+    function either: the card's machine may have neither."""
+    paths = glob.glob(os.path.join(REPO, "fhpe_tpu_torch", "**", "*.py"),
+                      recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
+    pattern = re.compile(r"^\s*(import|from)\s+(cv2|PIL)\b", re.M)
+    found = [os.path.relpath(p, REPO) for p in paths
+             if pattern.search(open(p).read())]
+    assert len(paths) > 50 and not found, found
