@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``fhpe_tpu_torch``) on one GPU.
 
-Drives the port's four paths end to end, through the entry points a
+Drives the port's paths end to end, through the entry points a
 user calls, with random weights from a seed:
 
 * serving the FPD hourglass (MPII 256x256, 16 joints): the student
@@ -26,6 +26,11 @@ user calls, with random weights from a seed:
   through P5 (the teacher's and the eval step's in eval mode, the
   student's in train mode, its backward through P4), then validation:
   ``make_eval_step`` -> ``make_evaluate_fn`` (COCO AP);
+* the command-line entry points a user runs, in this process through
+  their ``main(argv)``: ``cli.fpd_train`` on the hourglass pair (2
+  epochs, a resume to a third, checkpoints) and ``cli.train`` on
+  PoseResNet-50 COCO (one epoch to AP), each followed by ``cli.test``
+  on its ``final_state.pth``;
 * PoseResNet-50 on COCO 256x192 (``res50_256x192_d256x3_adam_lr1e-3.yaml``,
   He-scale weights from a seed): serving through ``Predictor``, the plain
   train step (``create_train_state`` -> ``make_batch_preprocessor`` ->
@@ -99,12 +104,13 @@ Phases; any failure raises and exits non-zero:
     own give finite stats;
 14b. the host data path: the image library's route and its JPEG round
     trip (max and mean difference from the pixels encoded, host ms per
-    encode and decode); ``make_synthetic_mpii`` writes 64 train and 56
-    validation JPEGs at 256x256; the train loader alone (images/s per
-    epoch, ``WORKERS`` threads, nproc); 4 FPD steps fed by ``BatchLoader``
+    encode and decode); ``write_mpii_sets`` writes 64 train and 56
+    validation JPEGs at 256x256 under one ``DATASET.ROOT`` (phase 25
+    reads them again); the train loader alone (images/s per epoch,
+    ``WORKERS`` threads, nproc); 4 FPD steps fed by ``BatchLoader``
     batches (P4 59 and decode 2 launches per step, finite losses); the
-    validation loader through ``make_eval_step`` (flip test, a padded last
-    batch, 3 decode launches per batch) to PCKh (finite); then the step's
+    validation loader through ``cli.common.validate`` (flip test, a padded
+    last batch, 3 decode launches per batch) to PCKh (finite); then the step's
     images/s and idle share fed by the loader against the same step on one
     batch already on the device, in turns;
 15. P5 (the HRNet BasicBlock chain, eval and train entries) against its
@@ -153,7 +159,27 @@ Phases; any failure raises and exits non-zero:
     bars of ``RN50_ROUTE_STEP_BARS``;
 24. validation of the trained RN-50 as phase 19: 26 conv3x3_fwd and 3
     decode launches per batch, one segmented OKS-NMS launch per evaluated
-    set, 10 finite stats.
+    set, 10 finite stats;
+25. the FPD CLI (``cli.fpd_train.main``, in this process): phase 12's
+    hourglass pair at full width (bf16, batch 32), the teacher from a
+    seeded ``.pth`` as ``KD.TEACHER``, over phase 14b's synthetic MPII
+    JPEGs in one ``DATASET.ROOT``: both pre-training validations, 2
+    epochs of 2 steps, a validation after each, ``checkpoint.pth``,
+    ``model_best.pth`` and ``final_state.pth``; P4 59 and decode 2
+    launches per step, decode 3 per eval batch; then a rerun to
+    ``END_EPOCH`` 3 resumes from epoch 2 (logged) and trains one epoch,
+    its Adam steps going on from 4; then ``cli.test.main`` on its
+    ``final_state.pth`` gives the last validation's predictions and PCKh
+    Mean exactly; each run's epoch wall time (start-up included: 2 steps
+    per epoch), logged ``Speed`` and validation samples/s;
+26. the train CLI (``cli.train.main``) on PoseResNet-50 COCO
+    (``DEBUG.DEBUG False``, bf16, batch 32, a ``MODEL.PRETRAINED`` that
+    is not there: its warning is logged) over synthetic COCO JPEGs
+    (``make_synthetic_coco``, 64 train, 64 validation images): one epoch
+    to COCO AP with conv3x3_fwd 13 per step and 26 per eval batch, P4 13
+    per step, one segmented OKS-NMS launch per evaluated set; then
+    ``cli.test.main`` on ``final_state.pth`` gives the same predictions
+    and AP.
 
 Phases 15, 20, 4b and 16 run right after 11, in that order; W32 serving
 (phases 8 and 10) also counts 52 P5e launches per chunk.
@@ -167,9 +193,13 @@ those windows.  Then one JSON line with the kernels, and last the
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
+import logging
 import math
+import os
+import re
 import sys
 import tempfile
 import time
@@ -287,6 +317,15 @@ RN50_TRAIN_STEPS = 10      # on one repeated batch: the loss must fall
 # card against CPU 8.3e-7, 7.2e-6, 2.9e-2 and 3.4e-2 (worst 0.20), 0.54%
 # off.  About 10x above the route's own numbers:
 RN50_ROUTE_STEP_BARS = (1e-6, 1e-6, 3e-3, 1e-2, 1e-4)
+
+# phases 25-26, the port's CLIs through main(argv), in this process: the
+# run dirs end in CLI_RUN_TAG (FHPE_RUN_TAG), so a rerun resumes.  Each
+# train set is 64 JPEGs (two steps of 32 per epoch); the MPII validation
+# set is phase 14b's 56 people (two eval batches, the last padded), the
+# COCO one 64 images of one person each.
+CLI_RUN_TAG = "chip_smoke"
+CLI_FPD_EPOCHS = 2         # then a resume to a third
+CLI_COCO_VALID = 64
 
 # Card peaks for the bound (NVIDIA H100 SXM data sheet, dense).
 HBM_BYTES_PER_S = 3.35e12
@@ -1821,171 +1860,151 @@ def phase_eval_mpii(model, device, out_dir, totals) -> None:
 
 def loader_cfgs(root: Path):
     """The FPD configs of phase 12 (``fpd_cfgs``) on the synthetic MPII
-    sets under ``root``: the student's train set ``train`` (batch
-    ``TRAIN_BATCH``) and, as a clone, its validation set ``valid``; no db
-    cache.  Returns (train cfg, validation cfg, teacher cfg)."""
+    sets ``write_mpii_sets`` put under ``root``: train set ``train``
+    (batch ``TRAIN_BATCH``), validation set ``valid``, no db cache.
+    Returns (student cfg, teacher cfg)."""
     from fhpe_tpu_torch.tools.train_parity import fpd_cfgs
     scfg, tcfg = fpd_cfgs()
     scfg.defrost()
-    scfg.DATASET.ROOT = str(root / "train")
-    scfg.DATASET.TRAIN_SET = scfg.DATASET.TEST_SET = "train"
+    scfg.DATASET.ROOT = str(root)
+    scfg.DATASET.TRAIN_SET = "train"
+    scfg.DATASET.TEST_SET = "valid"
     scfg.DATASET.CACHE_ROOT = ""
     scfg.TRAIN.BATCH_SIZE_PER_GPU = TRAIN_BATCH
-    vcfg = scfg.clone()
-    vcfg.DATASET.ROOT = str(root / "valid")
-    vcfg.DATASET.TEST_SET = "valid"
     scfg.freeze()
-    vcfg.freeze()
-    return scfg, vcfg, tcfg
+    return scfg, tcfg
 
 
-def phase_loader(state, device, totals, label) -> None:
+def phase_loader(state, device, totals, label, root: Path) -> None:
     """The FPD train step and MPII validation fed by the port's own host
-    data path: ``make_synthetic_mpii`` writes JPEGs through the image
-    library, ``build_loaders`` -> ``BatchLoader`` decodes, augments and
-    warps them in ``WORKERS`` threads, ``device_batch`` uploads."""
+    data path: ``write_mpii_sets`` writes JPEGs through the image library
+    under ``root`` (kept for phase 25), ``build_loaders`` ->
+    ``BatchLoader`` decodes, augments and warps them in ``WORKERS``
+    threads, ``device_batch`` uploads."""
     import os
 
     import torch
     from fhpe_tpu_torch.cli.common import (build_loaders, device_batch,
-                                           make_evaluate_fn)
-    from fhpe_tpu_torch.data import MPII_FLIP_PAIRS, make_synthetic_mpii
-    from fhpe_tpu_torch.geometry.flip import flip_pair_permutation
+                                           make_evaluate_fn, validate)
     from fhpe_tpu_torch.ops import native_image
     from fhpe_tpu_torch.tools import jpeg_route
     from fhpe_tpu_torch.train import (make_batch_preprocessor,
-                                      make_eval_step, make_fpd_train_step)
+                                      make_fpd_train_step)
     from fhpe_tpu_torch.utils.profiling import busy_ms, device_events
 
-    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
-        root = Path(tmp)
-        scfg, vcfg, tcfg = loader_cfgs(root)
-        w, h = (int(v) for v in scfg.MODEL.IMAGE_SIZE)
-        rt = jpeg_route.round_trip(jpeg_route.draw_images(
-            LOADER_ROUND_TRIP_IMAGES, w))[0]
-        log("loader", f"image library route {native_image.route()}: "
-            f"{LOADER_ROUND_TRIP_IMAGES} {w}x{w} images encoded at quality "
-            f"95 and decoded differ from the pixels encoded by max "
-            f"{rt['vs_encoded']['max_abs']}, mean "
-            f"{rt['vs_encoded']['mean_abs']:.4f}; host encode "
-            f"{rt['encode_ms']:.3f} ms, decode {rt['decode_ms']:.3f} ms per "
-            f"image; {label}")
+    scfg, tcfg = loader_cfgs(root)
+    w, h = (int(v) for v in scfg.MODEL.IMAGE_SIZE)
+    rt = jpeg_route.round_trip(jpeg_route.draw_images(
+        LOADER_ROUND_TRIP_IMAGES, w))[0]
+    log("loader", f"image library route {native_image.route()}: "
+        f"{LOADER_ROUND_TRIP_IMAGES} {w}x{w} images encoded at quality "
+        f"95 and decoded differ from the pixels encoded by max "
+        f"{rt['vs_encoded']['max_abs']}, mean "
+        f"{rt['vs_encoded']['mean_abs']:.4f}; host encode "
+        f"{rt['encode_ms']:.3f} ms, decode {rt['decode_ms']:.3f} ms per "
+        f"image; {label}")
 
+    t0 = time.perf_counter()
+    write_mpii_sets(root, (h, w))
+    write_s = time.perf_counter() - t0
+    train_loader, val_loader, meta = build_loaders(scfg)
+    threads = max(2, int(scfg.WORKERS))
+    rates = []
+    for _ in range(LOADER_TIMED_EPOCHS):
         t0 = time.perf_counter()
-        make_synthetic_mpii(str(root / "train"), "train", LOADER_TRAIN_IMAGES,
-                            (h, w), seed=0)
-        make_synthetic_mpii(str(root / "valid"), "valid", MPII_PEOPLE,
-                            (h, w), seed=1)
-        write_s = time.perf_counter() - t0
-        train_loader, _, meta = build_loaders(scfg)
-        _, val_loader, _ = build_loaders(vcfg, train=False)
-        threads = max(2, int(scfg.WORKERS))
-        rates = []
+        n = sum(len(b["valid"]) for b in train_loader)
+        rates.append(n / (time.perf_counter() - t0))
+    log("loader", f"wrote {LOADER_TRAIN_IMAGES} + {MPII_PEOPLE} "
+        f"{w}x{h} JPEGs in {write_s:.2f} s; the train loader alone "
+        f"(decode, augment, warp, collate; {threads} threads, nproc "
+        f"{os.cpu_count()}) {', '.join(f'{r:.1f}' for r in rates)} "
+        f"images/s per epoch of {n} on {label}")
+
+    teacher = seeded_model(tcfg, 100).to(device)
+    step = make_fpd_train_step(scfg, teacher, tcfg,
+                               prepare=make_batch_preprocessor(scfg))
+
+    def train():
+        return [step(state, device_batch(scfg, batch, device))[1]
+                for _ in range(LOADER_EPOCHS) for batch in train_loader]
+
+    losses, counts = main_path_run(totals, train)
+    steps = len(losses)
+    want = expected(device, conv3x3_wgrad=P4_PER_STEP * steps,
+                    decode_heatmaps=K1_PER_TRAIN_STEP * steps)
+    if steps < 4 or counts != want:
+        raise AssertionError(f"loader: {steps} steps, launches {counts},"
+                             f" want {want}")
+    vals = [check_finite("loader", m) for m in losses]
+    log("loader", f"{steps} FPD steps on loader batches: loss "
+        + ", ".join(f"{v['loss']:.6f}" for v in vals) + "; launches "
+        f"per step: P4 {counts['conv3x3_wgrad'] / steps:g}, decode "
+        f"{counts['decode_heatmaps'] / steps:g}")
+
+    evaluate_fn = make_evaluate_fn(scfg, device=device)
+    (_, nv, preds, _, _), counts = main_path_run(totals, lambda: validate(
+        scfg, state.model, val_loader, meta, None, evaluate_fn,
+        output_dir=str(root.parent)))
+    batches = len(val_loader)
+    want = expected(device, decode_heatmaps=K1_PER_EVAL_BATCH * batches)
+    if counts != want:
+        raise AssertionError(f"loader eval: launches {counts}, want "
+                             f"{want}")
+    if preds.shape != (MPII_PEOPLE, 16, 3) or not np.isfinite(
+            preds).all() or not all(math.isfinite(float(v))
+                                    for v in nv.values()):
+        raise AssertionError(f"loader eval: preds {preds.shape}, PCKh "
+                             f"{dict(nv)}")
+    log("loader", f"cli.common.validate through the loader: {batches} "
+        f"batches of {scfg.TEST.BATCH_SIZE_PER_GPU} ({MPII_PEOPLE} people, "
+        f"flip test on), decode launches {counts['decode_heatmaps']}; PCKh "
+        + ", ".join(f"{k} {float(v):.2f}" for k, v in nv.items())
+        + f" on {label}")
+
+    resident = device_batch(scfg, next(iter(train_loader)), device)
+
+    def fed_by_loader():
         for _ in range(LOADER_TIMED_EPOCHS):
-            t0 = time.perf_counter()
-            n = sum(len(b["valid"]) for b in train_loader)
-            rates.append(n / (time.perf_counter() - t0))
-        log("loader", f"wrote {LOADER_TRAIN_IMAGES} + {MPII_PEOPLE} "
-            f"{w}x{h} JPEGs in {write_s:.2f} s; the train loader alone "
-            f"(decode, augment, warp, collate; {threads} threads, nproc "
-            f"{os.cpu_count()}) {', '.join(f'{r:.1f}' for r in rates)} "
-            f"images/s per epoch of {n} on {label}")
+            for batch in train_loader:
+                step(state, device_batch(scfg, batch, device))
 
-        teacher = seeded_model(tcfg, 100).to(device)
-        step = make_fpd_train_step(scfg, teacher, tcfg,
-                                   prepare=make_batch_preprocessor(scfg))
+    def fed_resident():
+        for _ in range(LOADER_TIMED_EPOCHS * len(train_loader)):
+            step(state, resident)
 
-        def train():
-            return [step(state, device_batch(scfg, batch, device))[1]
-                    for _ in range(LOADER_EPOCHS) for batch in train_loader]
+    n_img = LOADER_TIMED_EPOCHS * len(train_loader) * TRAIN_BATCH
+    feeds = {"loader": fed_by_loader, "resident": fed_resident}
+    rates = {name: [] for name in feeds}
+    for name in ("loader", "resident", "resident", "loader"):
+        sync(device)
+        t0 = time.perf_counter()
+        feeds[name]()
+        sync(device)
+        rates[name].append(n_img / (time.perf_counter() - t0))
+    idle = {}
+    if device.type == "cuda":
+        for name, fn in feeds.items():
+            walls = []
 
-        losses, counts = main_path_run(totals, train)
-        steps = len(losses)
-        want = expected(device, conv3x3_wgrad=P4_PER_STEP * steps,
-                        decode_heatmaps=K1_PER_TRAIN_STEP * steps)
-        if steps < 4 or counts != want:
-            raise AssertionError(f"loader: {steps} steps, launches {counts},"
-                                 f" want {want}")
-        vals = [check_finite("loader", m) for m in losses]
-        log("loader", f"{steps} FPD steps on loader batches: loss "
-            + ", ".join(f"{v['loss']:.6f}" for v in vals) + "; launches "
-            f"per step: P4 {counts['conv3x3_wgrad'] / steps:g}, decode "
-            f"{counts['decode_heatmaps'] / steps:g}")
+            def timed(fn=fn, walls=walls):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
 
-        eval_step = make_eval_step(
-            vcfg, flip_pair_permutation(meta["num_joints"], MPII_FLIP_PAIRS),
-            prepare=make_batch_preprocessor(vcfg))
-
-        def validate():
-            return [eval_step(state.model, device_batch(vcfg, batch, device,
-                                                        for_eval=True))
-                    for batch in val_loader]
-
-        outs, counts = main_path_run(totals, validate)
-        want = expected(device, decode_heatmaps=K1_PER_EVAL_BATCH * len(outs))
-        if counts != want:
-            raise AssertionError(f"loader eval: launches {counts}, want "
-                                 f"{want}")
-        preds = torch.cat([torch.cat([o["preds"], o["maxvals"][..., None]],
-                                     -1) for o in outs]
-                          )[:MPII_PEOPLE].cpu().numpy()
-        nv, perf = make_evaluate_fn(vcfg, device=device)(
-            vcfg, preds, str(root), None, None)
-        if preds.shape != (MPII_PEOPLE, 16, 3) or not np.isfinite(
-                preds).all() or not all(math.isfinite(float(v))
-                                        for v in nv.values()):
-            raise AssertionError(f"loader eval: preds {preds.shape}, PCKh "
-                                 f"{dict(nv)}")
-        log("loader", f"validation through the loader: {len(outs)} batches "
-            f"of {vcfg.TEST.BATCH_SIZE_PER_GPU} ({MPII_PEOPLE} people, flip "
-            f"test on), decode launches {counts['decode_heatmaps']}; PCKh "
-            + ", ".join(f"{k} {float(v):.2f}" for k, v in nv.items())
-            + f" on {label}")
-
-        resident = device_batch(scfg, next(iter(train_loader)), device)
-
-        def fed_by_loader():
-            for _ in range(LOADER_TIMED_EPOCHS):
-                for batch in train_loader:
-                    step(state, device_batch(scfg, batch, device))
-
-        def fed_resident():
-            for _ in range(LOADER_TIMED_EPOCHS * len(train_loader)):
-                step(state, resident)
-
-        n_img = LOADER_TIMED_EPOCHS * len(train_loader) * TRAIN_BATCH
-        feeds = {"loader": fed_by_loader, "resident": fed_resident}
-        rates = {name: [] for name in feeds}
-        for name in ("loader", "resident", "resident", "loader"):
-            sync(device)
-            t0 = time.perf_counter()
-            feeds[name]()
-            sync(device)
-            rates[name].append(n_img / (time.perf_counter() - t0))
-        idle = {}
-        if device.type == "cuda":
-            for name, fn in feeds.items():
-                walls = []
-
-                def timed(fn=fn, walls=walls):
-                    t0 = time.perf_counter()
-                    fn()
-                    torch.cuda.synchronize()
-                    walls.append((time.perf_counter() - t0) * 1e3)
-
-                busy = busy_ms(device_events(timed))
-                idle[name] = f"{1 - busy / walls[0]:.3f}"
-        log("loader", "warm FPD step (bf16, batch "
-            f"{TRAIN_BATCH}, {n_img} images per run, in turns) fed by the "
-            "loader "
-            + ", ".join(f"{r:.1f}" for r in rates["loader"])
-            + " images/s (idle share " + idle.get("loader", "not measured")
-            + "), by one batch already on the device "
-            + ", ".join(f"{r:.1f}" for r in rates["resident"])
-            + " images/s (idle share " + idle.get("resident", "not measured")
-            + f"); nproc {os.cpu_count()}, {threads} loader threads; {label}")
-        train_loader.close()
-        val_loader.close()
+            busy = busy_ms(device_events(timed))
+            idle[name] = f"{1 - busy / walls[0]:.3f}"
+    log("loader", "warm FPD step (bf16, batch "
+        f"{TRAIN_BATCH}, {n_img} images per run, in turns) fed by the "
+        "loader "
+        + ", ".join(f"{r:.1f}" for r in rates["loader"])
+        + " images/s (idle share " + idle.get("loader", "not measured")
+        + "), by one batch already on the device "
+        + ", ".join(f"{r:.1f}" for r in rates["resident"])
+        + " images/s (idle share " + idle.get("resident", "not measured")
+        + f"); nproc {os.cpu_count()}, {threads} loader threads; {label}")
+    train_loader.close()
+    val_loader.close()
 
 
 # -- PoseResNet-50: conv3x3_fwd ----------------------------------------------
@@ -2246,6 +2265,282 @@ def phase_rn50_f32_parity(device) -> None:
         raise AssertionError(f"rn50-f32: beyond the bars: {bad}")
 
 
+# -- the CLIs: FPD of the hourglass with a resume, RN-50 on COCO ----------------
+
+class LogTap(logging.Handler):
+    """The messages the CLIs log to the root logger, kept in order."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def write_mpii_sets(root: Path, hw) -> None:
+    """Phase 14b's synthetic MPII sets under one ``DATASET.ROOT``: 64
+    train and ``MPII_PEOPLE`` validation JPEGs.  The writer names images
+    by index, so the validation set is written beside and moved under
+    ``images/valid/``, its annotations renamed to match."""
+    from fhpe_tpu_torch.data import make_synthetic_mpii
+    make_synthetic_mpii(str(root), "train", LOADER_TRAIN_IMAGES, hw, seed=0)
+    side = root.parent / "mpii_valid"
+    make_synthetic_mpii(str(side), "valid", MPII_PEOPLE, hw, seed=1)
+    (root / "images" / "valid").mkdir()
+    for f in (side / "images").iterdir():
+        f.rename(root / "images" / "valid" / f.name)
+    anno = json.loads((side / "annot" / "valid.json").read_text())
+    for a in anno:
+        a["image"] = "valid/" + a["image"]
+    (root / "annot" / "valid.json").write_text(json.dumps(anno))
+    (side / "annot" / "gt_valid.mat").rename(root / "annot" / "gt_valid.mat")
+
+
+def cli_run(module, argv, totals, step_factory=None) -> dict:
+    """``module.main(argv)`` inside a main-path window, with its
+    validations and train steps counted and its log tapped.  Returns
+    {"result", "counts", "vals" (each validation's return), "steps",
+    "lines", "wall"}."""
+    vals, steps = [], [0]
+    orig_validate = module.validate
+
+    def validate(*a, **k):
+        vals.append(orig_validate(*a, **k))
+        return vals[-1]
+
+    def counted_factory(*a, **k):
+        step = orig_factory(*a, **k)
+
+        def counted(state, batch):
+            steps[0] += 1
+            return step(state, batch)
+        return counted
+
+    tap = LogTap()
+    root_logger = logging.getLogger()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(module, "validate", validate))
+        stack.enter_context(mock.patch.dict(os.environ,
+                                            FHPE_RUN_TAG=CLI_RUN_TAG))
+        if step_factory:
+            orig_factory = getattr(module, step_factory)
+            stack.enter_context(mock.patch.object(module, step_factory,
+                                                  counted_factory))
+        root_logger.addHandler(tap)
+        stack.callback(root_logger.removeHandler, tap)
+        t0 = time.perf_counter()
+        result, counts = main_path_run(totals, lambda: module.main(argv))
+        wall = time.perf_counter() - t0
+    return {"result": result, "counts": counts, "vals": vals,
+            "steps": steps[0], "lines": tap.lines, "wall": wall}
+
+
+def cli_speeds(lines) -> str:
+    """What a CLI's meters and epochs logged: each epoch's wall time (an
+    epoch of 2 steps: the loader's start-up included, no steady rate),
+    the ``Speed`` of every logged step, the validations' samples/s."""
+    epochs = [m.groups() for m in (re.search(
+        r"Epoch: \[(\d+)\] (\d+) steps in ([\d.]+) s", ln)
+        for ln in lines) if m]
+    speeds = [m.group(1) for m in (re.search(r"Speed ([\d.]+) samples/s", ln)
+                                   for ln in lines) if m]
+    evals = [m.group(1) for m in (re.search(
+        r"overall PCK [\d.]+, ([\d.]+) samples/s", ln) for ln in lines) if m]
+    parts = []
+    if epochs:
+        parts.append("epoch wall times, start-up included " + ", ".join(
+            f"[{e}] {n} steps {t} s" for e, n, t in epochs))
+    if speeds:
+        parts.append(f"Speed per logged step {', '.join(speeds)} samples/s")
+    parts.append(f"validation {', '.join(evals)} samples/s")
+    return "; ".join(parts)
+
+
+def check_cli(phase, run, want_counts, vals, steps) -> None:
+    if (run["counts"], len(run["vals"]), run["steps"]) != (want_counts, vals,
+                                                          steps):
+        raise AssertionError(
+            f"{phase}: launches {run['counts']}, {len(run['vals'])} "
+            f"validations, {run['steps']} steps; want {want_counts}, {vals}, "
+            f"{steps}")
+
+
+def same_perf(phase, test, last) -> str:
+    """The test CLI's validation against the train CLI's last one (each
+    ``validate``'s return): the same weights through the same eval step
+    and cuDNN's default (deterministic) forwards, so every prediction and
+    the perf are equal.  The predictions carry the check: a perf of 0
+    (RN-50 after one epoch from random init) would not tell the weights
+    apart."""
+    a, b = float(test[0]), float(last[0])
+    diff = np.abs(test[2] - last[2]).max()
+    if not np.array_equal(test[2], last[2]) or a != b:
+        raise AssertionError(f"{phase}: test CLI perf {a}, last "
+                             f"validation's {b}; predictions max |diff| "
+                             f"{diff:.3g}")
+    return f"equal, and all {test[2].shape[0]} people's predictions"
+
+
+def phase_fpd_cli(device, totals, label, mpii: Path) -> None:
+    """Phase 25: ``cli.fpd_train`` on phase 12's hourglass pair (student
+    4x128, teacher 8x256 from a seeded ``.pth``, 256x256, bf16, batch 32,
+    Adam) over phase 14b's synthetic MPII JPEGs under ``mpii``: 2 epochs,
+    a resume to a third, then ``cli.test`` on the result."""
+    from fhpe_tpu_torch.cli import fpd_train as fpd_cli
+    from fhpe_tpu_torch.cli import test as test_cli
+    from fhpe_tpu_torch.config import load_config
+    from fhpe_tpu_torch.tools.train_parity import STUDENT_YAML as FPD_YAML
+    from fhpe_tpu_torch.utils import checkpoint as ck
+
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        root = Path(tmp)
+        opts = ["OUTPUT_DIR", str(root / "out"), "LOG_DIR", str(root / "log"),
+                "DATASET.ROOT", str(mpii), "DATASET.CACHE_ROOT", "",
+                "TPU.COMPUTE_DTYPE", "bfloat16", "TPU.DEAD_BIAS_SKIP", "True",
+                "TRAIN.BATCH_SIZE_PER_GPU", str(TRAIN_BATCH),
+                "PRINT_FREQ", "1", "AUTO_RESUME", "True"]
+        # the teacher's config as the CLI builds it: the student's, the
+        # teacher file merged over it (reference fpd_train.py:128-131)
+        tcfg = load_config(str(FPD_YAML), opts)
+        tcfg.defrost()
+        tcfg.merge_from_file(str(TEACHER_YAML))
+        teacher_pth = root / "teacher.pth"
+        ck.save_weights(str(teacher_pth), seeded_model(tcfg, 100))
+        argv = ["--cfg", str(FPD_YAML), "--tcfg", str(TEACHER_YAML),
+                "--device", str(device), *opts, "KD.TEACHER",
+                str(teacher_pth)]
+        per_batch = math.ceil(MPII_PEOPLE / TRAIN_BATCH)   # eval batches
+
+        def want(steps, vals):
+            return expected(device, conv3x3_wgrad=P4_PER_STEP * steps,
+                            decode_heatmaps=K1_PER_TRAIN_STEP * steps
+                            + K1_PER_EVAL_BATCH * per_batch * vals)
+
+        steps = 2 * CLI_FPD_EPOCHS
+        run = cli_run(fpd_cli, argv + ["TRAIN.END_EPOCH",
+                                       str(CLI_FPD_EPOCHS)],
+                      totals, "make_fpd_train_step")
+        check_cli("fpd-cli", run, want(steps, 2 + CLI_FPD_EPOCHS),
+                  2 + CLI_FPD_EPOCHS, steps)
+        run_dir = (root / "out" / "mpii" / "hourglass"
+                   / f"{FPD_YAML.stem}_{CLI_RUN_TAG}")
+        for name in (ck.CKPT_NAME, ck.BEST_NAME, ck.FINAL_NAME):
+            if not (run_dir / name).exists():
+                raise AssertionError(f"fpd-cli: no {name} in {run_dir}")
+        tperf, sperf = (v[0] for v in run["vals"][:2])
+        log("fpd-cli", f"{FPD_YAML.name} by {TEACHER_YAML.name} (teacher "
+            f"from a seeded .pth), {LOADER_TRAIN_IMAGES} + {MPII_PEOPLE} "
+            f"JPEGs: {run['wall']:.2f} s for main(); pre-training PCKh "
+            f"Mean teacher {tperf:.2f}, student "
+            f"{sperf:.2f}, after each epoch "
+            + ", ".join(f"{v[0]:.2f}" for v in run["vals"][2:])
+            + f"; {run['steps']} steps; launches per step: P4 "
+            f"{run['counts']['conv3x3_wgrad'] / steps:g}, decode "
+            f"{K1_PER_TRAIN_STEP} and {K1_PER_EVAL_BATCH} per eval batch "
+            f"({run['counts']['decode_heatmaps']} in all)")
+        log("fpd-cli", cli_speeds(run["lines"]) + f"; {label}")
+
+        resumed = cli_run(fpd_cli, argv + ["TRAIN.END_EPOCH",
+                                           str(CLI_FPD_EPOCHS + 1)],
+                          totals, "make_fpd_train_step")
+        check_cli("fpd-cli resume", resumed, want(2, 3), 3, 2)
+        if not any(f"auto-resumed from epoch {CLI_FPD_EPOCHS}" in ln
+                   for ln in resumed["lines"]):
+            raise AssertionError("fpd-cli resume: no resume from epoch "
+                                 f"{CLI_FPD_EPOCHS} logged")
+        saved = ck.load_checkpoint_file(str(run_dir / ck.CKPT_NAME))
+        adam = {int(s["step"]) for s in saved["optimizer"]["state"].values()}
+        if (saved["epoch"], saved["step"], adam) != (
+                CLI_FPD_EPOCHS + 1, steps + 2, {steps + 2}):
+            raise AssertionError(f"fpd-cli resume: checkpoint epoch "
+                                 f"{saved['epoch']}, step {saved['step']}, "
+                                 f"Adam steps {adam}")
+        log("fpd-cli", f"resumed from epoch {CLI_FPD_EPOCHS} in "
+            f"{resumed['wall']:.2f} s: 1 epoch, {resumed['steps']} steps, "
+            f"Adam and the state at step {saved['step']} (from "
+            f"{steps}); PCKh Mean {resumed['vals'][-1][0]:.2f}; "
+            + cli_speeds(resumed["lines"]))
+
+        test = cli_run(test_cli, ["--cfg", str(FPD_YAML), "--device",
+                                  str(device), *opts, "TEST.MODEL_FILE",
+                                  str(run_dir / ck.FINAL_NAME)], totals)
+        check_cli("fpd-cli test", test, want(0, 1), 1, 0)
+        last = resumed["vals"][-1]
+        verdict = same_perf("fpd-cli test", test["vals"][0], last)
+        log("fpd-cli", f"cli.test on final_state.pth: PCKh Mean "
+            f"{test['result']:.4f}, the last validation's {last[0]:.4f}: "
+            f"{verdict}; " + cli_speeds(test["lines"]) + f"; {label}")
+
+
+def phase_rn50_cli(device, totals, label) -> None:
+    """Phase 26: ``cli.train`` on PoseResNet-50 COCO
+    (``res50_256x192_d256x3_adam_lr1e-3.yaml``, ``DEBUG.DEBUG False``,
+    bf16, batch 32, a ``MODEL.PRETRAINED`` that is not there) over
+    synthetic COCO JPEGs: one epoch to COCO AP, then ``cli.test`` on
+    ``final_state.pth``."""
+    from fhpe_tpu_torch.cli import test as test_cli
+    from fhpe_tpu_torch.cli import train as train_cli
+    from fhpe_tpu_torch.data import make_synthetic_coco
+    from fhpe_tpu_torch.utils import checkpoint as ck
+
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        root = Path(tmp)
+        make_synthetic_coco(str(root / "coco"), "train2017",
+                            LOADER_TRAIN_IMAGES, seed=0)
+        make_synthetic_coco(str(root / "coco"), COCO_SET, CLI_COCO_VALID,
+                            seed=1)
+        missing = root / "resnet50-imagenet.pth"
+        opts = ["OUTPUT_DIR", str(root / "out"), "LOG_DIR", str(root / "log"),
+                "DATASET.ROOT", str(root / "coco"), "DATASET.TRAIN_SET",
+                "train2017", "DATASET.TEST_SET", COCO_SET,
+                "DATASET.CACHE_ROOT", "", "DEBUG.DEBUG", "False",
+                "TPU.COMPUTE_DTYPE", "bfloat16",
+                "TRAIN.BATCH_SIZE_PER_GPU", str(TRAIN_BATCH),
+                "MODEL.PRETRAINED", str(missing), "PRINT_FREQ", "1"]
+        batches = math.ceil(CLI_COCO_VALID / TRAIN_BATCH)
+        steps = LOADER_TRAIN_IMAGES // TRAIN_BATCH
+
+        def want(steps, vals):
+            return expected(
+                device, conv3x3_fwd=RN50_ROUTED * (steps + 2 * batches * vals),
+                conv3x3_wgrad=RN50_ROUTED * steps,
+                decode_heatmaps=K1_PER_TRAIN_STEP * steps
+                + K1_PER_EVAL_BATCH * batches * vals,
+                oks_nms_segments=vals)
+
+        run = cli_run(train_cli, ["--cfg", str(RN50_YAML), "--device",
+                                  str(device), *opts, "TRAIN.END_EPOCH", "1"],
+                      totals, "make_train_step")
+        check_cli("rn50-cli", run, want(steps, 1), 1, steps)
+        if not any("MODEL.PRETRAINED" in ln and "not found" in ln
+                   for ln in run["lines"]):
+            raise AssertionError("rn50-cli: no MODEL.PRETRAINED warning")
+        ap, nv = run["vals"][-1][:2]
+        if len(nv) != 10 or not all(math.isfinite(float(v))
+                                    for v in nv.values()):
+            raise AssertionError(f"rn50-cli: COCO stats {dict(nv)}")
+        log("rn50-cli", f"{RN50_YAML.name} (DEBUG.DEBUG False, the "
+            f"MODEL.PRETRAINED warning logged, random init) on "
+            f"{LOADER_TRAIN_IMAGES} + {CLI_COCO_VALID} synthetic COCO "
+            f"JPEGs: {run['wall']:.2f} s for main(), 1 epoch of "
+            f"{run['steps']} steps, AP {ap:.4f}; launches "
+            + ", ".join(f"{k} {v}" for k, v in run["counts"].items() if v))
+        log("rn50-cli", cli_speeds(run["lines"]) + f"; {label}")
+
+        run_dir = (root / "out" / "coco" / "pose_resnet"
+                   / f"{RN50_YAML.stem}_{CLI_RUN_TAG}")
+        test = cli_run(test_cli, ["--cfg", str(RN50_YAML), "--device",
+                                  str(device), *opts, "TEST.MODEL_FILE",
+                                  str(run_dir / ck.FINAL_NAME)], totals)
+        check_cli("rn50-cli test", test, want(0, 1), 1, 0)
+        verdict = same_perf("rn50-cli test", test["vals"][0],
+                            run["vals"][-1])
+        log("rn50-cli", f"cli.test on final_state.pth: AP "
+            f"{test['result']:.6f}, the last validation's {ap:.6f}: "
+            f"{verdict}; " + cli_speeds(test["lines"]) + f"; {label}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2312,23 +2607,30 @@ def main() -> int:
     phase_f32_train_parity(device)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         phase_eval_mpii(state.model, device, Path(tmp), totals)
-    phase_loader(state, device, totals, label)
+    # phase 14b writes the synthetic MPII sets that phase 25 reads again
+    with tempfile.TemporaryDirectory(dir=build_dir) as mpii_tmp:
+        mpii = Path(mpii_tmp) / "mpii"
+        phase_loader(state, device, totals, label, mpii)
 
-    state = phase_hrnet_fpd_train(device, totals, label)
-    phase_hrnet_f32_parity(device)
-    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
-        phase_eval_coco("coco-eval", hrnet_fpd_cfgs()[0], state.model,
-                        device, Path(tmp), totals)
+        state = phase_hrnet_fpd_train(device, totals, label)
+        phase_hrnet_f32_parity(device)
+        with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+            phase_eval_coco("coco-eval", hrnet_fpd_cfgs()[0], state.model,
+                            device, Path(tmp), totals)
 
-    rn50 = serve_cfg(RN50_YAML)
-    phase_serve("rn50", rn50, he_model(rn50, 300), device, [1, 32, 45],
-                seed=300, totals=totals, label=label)
-    phase_rn50_f32_serve_parity(device, totals)
-    state = phase_rn50_train(device, totals, label)
-    phase_rn50_f32_parity(device)
-    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
-        phase_eval_coco("rn50-eval", rn50_cfg(), state.model, device,
-                        Path(tmp), totals)
+        rn50 = serve_cfg(RN50_YAML)
+        phase_serve("rn50", rn50, he_model(rn50, 300), device, [1, 32, 45],
+                    seed=300, totals=totals, label=label)
+        phase_rn50_f32_serve_parity(device, totals)
+        state = phase_rn50_train(device, totals, label)
+        phase_rn50_f32_parity(device)
+        with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+            phase_eval_coco("rn50-eval", rn50_cfg(), state.model, device,
+                            Path(tmp), totals)
+        del state
+        torch.cuda.empty_cache()
+        phase_fpd_cli(device, totals, label, mpii)
+    phase_rn50_cli(device, totals, label)
 
     for name in KERNELS:
         if totals[name] <= 0:

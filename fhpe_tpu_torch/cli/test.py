@@ -1,0 +1,57 @@
+"""Evaluation CLI.
+
+Counterpart of ``fhpe_tpu/cli/test.py`` (the reference's
+``tools/test.py``) on one device: load ``TEST.MODEL_FILE`` (or
+``final_state.pth`` of the run dir), run the full validation pass with
+flip-test and dataset metrics.  Any layout ``utils/checkpoint.py::
+load_model_weights`` reads loads, the reference's released ``.pth``
+files among them.
+
+Usage:
+  python -m fhpe_tpu_torch.cli.test --cfg <cfg.yaml> [--device cuda|cpu] \\
+      TEST.MODEL_FILE <weights.pth>
+"""
+
+from __future__ import annotations
+
+import os
+
+from ..models import get_pose_net, param_count
+from ..train import param_dtype
+from ..utils.checkpoint import FINAL_NAME, load_model_weights
+from ..utils.logger import create_logger
+from .common import (build_loaders, check_supported, load_cfg_from_args,
+                     make_evaluate_fn, parse_args, resolve_device, validate)
+
+
+def main(argv=None):
+    """Returns the perf indicator (PCKh Mean, COCO AP, or the PCK proxy
+    on ``synthetic``)."""
+    args = parse_args("Test keypoints network", argv=argv)
+    cfg = load_cfg_from_args(args)
+    check_supported(cfg)
+    device = resolve_device(args.device)
+    logger, output_dir, _ = create_logger(cfg, args.cfg, "valid")
+
+    model_file = cfg.TEST.MODEL_FILE or os.path.join(output_dir, FINAL_NAME)
+    if not os.path.exists(model_file):
+        raise SystemExit(f"model file not found: {model_file}")
+    logger.info(f"=> loading model from {model_file}")
+    model = get_pose_net(cfg)
+    model.load_state_dict(load_model_weights(model_file))
+    model = model.to(device=device, dtype=param_dtype(cfg, device)).eval()
+    logger.info(f"=> {cfg.MODEL.NAME}: {param_count(model):,} parameters "
+                f"on {device}")
+
+    _, val_loader, meta = build_loaders(cfg, train=False)
+    try:
+        perf, *_ = validate(cfg, model, val_loader, meta, logger,
+                            make_evaluate_fn(cfg, device=device), output_dir)
+    finally:
+        val_loader.close()
+    logger.info(f"=> final perf: {perf:.4f}")
+    return perf
+
+
+if __name__ == "__main__":
+    main()

@@ -143,6 +143,16 @@ class CfgNode(dict):
         return {k: v.to_dict() if isinstance(v, CfgNode) else v
                 for k, v in self.items()}
 
+    def dump_yaml(self) -> str:
+        def _plain(v):
+            if isinstance(v, CfgNode):
+                return {k: _plain(x) for k, x in v.items()}
+            if isinstance(v, tuple):
+                return list(v)
+            return v
+
+        return yaml.safe_dump(_plain(self), sort_keys=False)
+
     def __deepcopy__(self, memo):
         node = CfgNode(new_allowed=object.__getattribute__(self, CfgNode._NEW_ALLOWED))
         for k, v in self.items():

@@ -74,6 +74,13 @@ def set_lr(state: TrainState, lr: float) -> TrainState:
     return state
 
 
+def param_dtype(cfg, device) -> torch.dtype:
+    """Parameters are float32, float64 in the CPU parity mode; bf16
+    compute runs under autocast on float32 parameters."""
+    return torch.float64 if compute_dtype(cfg, device) == torch.float64 \
+        else torch.float32
+
+
 def create_train_state(cfg, model: Optional[nn.Module] = None, seed: int = 0,
                        device: Union[str, torch.device] = "cuda"
                        ) -> TrainState:
@@ -91,9 +98,7 @@ def create_train_state(cfg, model: Optional[nn.Module] = None, seed: int = 0,
             torch.manual_seed(seed)
             model = get_pose_net(cfg)
     device = torch.device(device)
-    param_dtype = torch.float64 if compute_dtype(cfg, device) == \
-        torch.float64 else torch.float32
-    model = model.to(device=device, dtype=param_dtype)
+    model = model.to(device=device, dtype=param_dtype(cfg, device))
     model.train()
     return TrainState(model=model,
                       optimizer=make_optimizer(cfg, model.parameters()))

@@ -29,6 +29,9 @@ from fhpe_tpu.geometry import targets as targets_jax
 from fhpe_tpu.ops import native_image as native_image_jax
 from fhpe_tpu.ops import nms as nms_jax
 from fhpe_tpu.train import state as state_jax
+from fhpe_tpu.config import node as node_jax
+from fhpe_tpu.utils import logger as logger_jax
+from fhpe_tpu.utils import torch_import as torch_import_jax
 from fhpe_tpu.utils import zipreader as zipreader_jax
 import fhpe_tpu_torch.data as data
 from fhpe_tpu_torch import config
@@ -38,7 +41,7 @@ from fhpe_tpu_torch.eval import coco_eval
 from fhpe_tpu_torch.geometry import affine, flip, targets
 from fhpe_tpu_torch.ops import native_image, nms
 from fhpe_tpu_torch.train import state
-from fhpe_tpu_torch.utils import zipreader
+from fhpe_tpu_torch.utils import logger, pretrained, zipreader
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXPERIMENTS = sorted(os.path.relpath(p, REPO) for p in glob.glob(
@@ -73,9 +76,10 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    # every module of the port, the HRNet training slice's
-    # ops/branch_chain.py and ops/branch_chain_cases.py among them
-    assert int(proc.stdout.split()[-1]) >= 41, proc.stdout
+    # every module of the port, the CLI slice's cli/train.py,
+    # cli/fpd_train.py, cli/test.py and utils/{checkpoint,logger,
+    # pretrained}.py among them
+    assert int(proc.stdout.split()[-1]) >= 62, proc.stdout
 
 
 @pytest.mark.parametrize("path", EXPERIMENTS)
@@ -251,6 +255,25 @@ DATA_PATH_COPIES = {
 @pytest.mark.parametrize("name", sorted(DATA_PATH_COPIES))
 def test_data_path_copy_equal(name):
     _same_source(*DATA_PATH_COPIES[name])
+
+
+# what the CLIs take from fhpe_tpu: (port object, fhpe_tpu object)
+CLI_COPIES = {
+    **{f"logger.{n}": (getattr(logger, n), getattr(logger_jax, n))
+       for n in ("create_logger", "AverageMeter", "WindowedMeters",
+                 "print_name_value", "save_config_yaml")},
+    "common.load_cfg_from_args": (common.load_cfg_from_args,
+                                  common_jax.load_cfg_from_args),
+    "CfgNode.dump_yaml": (config.CfgNode.dump_yaml,
+                          node_jax.CfgNode.dump_yaml),
+    "filter_pretrained_layers": (pretrained.filter_pretrained_layers,
+                                 torch_import_jax.filter_pretrained_layers),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CLI_COPIES))
+def test_cli_copy_equal(name):
+    _same_source(*CLI_COPIES[name])
 
 
 def _warp_text(path):
