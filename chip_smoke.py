@@ -2,7 +2,11 @@
 """Smoke run of the PyTorch/CUDA port (``fhpe_tpu_torch``) on one GPU.
 
 Drives the port's paths end to end, through the entry points a
-user calls, with random weights from a seed:
+user calls, with random weights from a seed.  On the card those entry
+points replay captured CUDA graphs (``utils/graph.py``): the Predictor,
+``make_eval_step``, the train steps the CLIs and phase 14b run; phases
+12, 17 and 22 time the steps' eager bodies (``step.eager``), and phase 27
+holds each captured step against its body:
 
 * serving the FPD hourglass (MPII 256x256, 16 joints): the student
   (4 stacks x 128 features) and the teacher (8 x 256) at full width,
@@ -87,9 +91,10 @@ Phases; any failure raises and exits non-zero:
     instructions in the bf16 entries' SASS; then the device time of the
     kernel, its plain version and cuDNN's weight gradient
     (``aten.convolution_backward``, timed, never used);
-12. the FPD train step at full width (bf16, batch 32, DEAD_BIAS_SKIP as
-    bench.py trains): P4 launches == 59 and decode launches == 2 per
-    step, finite losses, the loss falling over 20 steps on one batch,
+12. the FPD train step's eager body at full width (bf16, batch 32,
+    DEAD_BIAS_SKIP as bench.py trains): P4 launches == 59 and decode
+    launches == 2 per
+    step, finite losses, the loss falling over 10 steps on one batch,
     warm train images/s, and a profile (idle share, device ops per step,
     kernel ms by group), and P4 on each of the three train steps' P4
     shape sets against cuDNN wgrad on the same shapes;
@@ -110,9 +115,10 @@ Phases; any failure raises and exits non-zero:
     ``WORKERS`` threads, nproc); 4 FPD steps fed by ``BatchLoader``
     batches (P4 59 and decode 2 launches per step, finite losses); the
     validation loader through ``cli.common.validate`` (flip test, a padded
-    last batch, 3 decode launches per batch) to PCKh (finite); then the step's
-    images/s and idle share fed by the loader against the same step on one
-    batch already on the device, in turns;
+    last batch, 3 decode launches per batch) to PCKh (finite); then one
+    batch's upload and its copy into the graph's inputs, and the captured
+    step's images/s and idle share fed by the loader against the same
+    step on one batch already on the device, in turns;
 15. P5 (the HRNet BasicBlock chain, eval and train entries) against its
     plain versions on every W32 and W48 chain shape at batch 32 and on
     edge cases (B = 1 and 3, C = 8 and 40, 1x1 and 3x130 images), bf16
@@ -123,9 +129,10 @@ Phases; any failure raises and exits non-zero:
     version;
 16. ``BranchChainFn``'s gradients against autograd through the plain
     chain, float32, at one W32 chain shape;
-17. the FPD W48 -> W32 train step at full width (bf16, batch 32): per
+17. the FPD W48 -> W32 train step's eager body at full width (bf16,
+    batch 32): per
     step 26 P5e, 26 P5t, 212 P4 and 2 decode launches, finite losses
-    falling over 10 steps on one batch, warm train images/s with P5 and
+    falling over 5 steps on one batch, warm train images/s with P5 and
     with every chain unrouted, a profile of each (idle share, device ops
     per step, kernel ms by group, P5's device ms per step) and one step's
     52 chain forwards on P5 against the unfused modules;
@@ -149,9 +156,10 @@ Phases; any failure raises and exits non-zero:
     launches per chunk), then float32 card-vs-CPU parity at phase 6's bars
     inside a main-path window (the float32-out kernel, 26 per Predictor
     forward pair);
-22. the RN-50 plain train step at full width (bf16, batch 32, Adam lr
-    1e-3): per step 13 conv3x3_fwd, 13 P4 and 2 decode launches, finite
-    losses falling over 10 steps on one batch, warm train images/s in
+22. the RN-50 plain train step's eager body at full width (bf16, batch
+    32, Adam lr 1e-3): per step 13 conv3x3_fwd, 13 P4 and 2 decode
+    launches, finite
+    losses falling over 5 steps on one batch, warm train images/s in
     turns with the route off (cuDNN forwards), a profile of each route,
     and the kernel on one step's 13 conv shapes against cuDNN's forward;
 23. float32 RN-50 step parity (TF32 off, batch 2): card against CPU at
@@ -179,7 +187,19 @@ Phases; any failure raises and exits non-zero:
     to COCO AP with conv3x3_fwd 13 per step and 26 per eval batch, P4 13
     per step, one segmented OKS-NMS launch per evaluated set; then
     ``cli.test.main`` on ``final_state.pth`` gives the same predictions
-    and AP.
+    and AP;
+27. the captured steps against their eager bodies (full width and
+    depth, bf16, batch 32, seeded weights): the hourglass FPD step, MPII
+    eval of the hourglass student, the W48 -> W32 FPD step, W32 serving
+    and the RN-50 plain step.  Launches per replay as per eager call;
+    eval and serve replays bit-equal to the body; the train steps after
+    5 steps from one state bit-equal wherever the body is bit-equal to a
+    second run of itself, elsewhere within ``GRAPH_SPREAD_FACTOR`` of
+    that run's distance (both printed); ``set_lr(0)`` then one replay
+    leaves every parameter; capturable against torch's default Adam over
+    one eager step; images/s of both in turns; one profiled replay and
+    one eager call (device ops the host launched, kernels, kernel ms,
+    idle share).
 
 Phases 15, 20, 4b and 16 run right after 11, in that order; W32 serving
 (phases 8 and 10) also counts 52 P5e launches per chunk.
@@ -211,6 +231,7 @@ from unittest import mock
 import numpy as np
 
 REPO = Path(__file__).resolve().parent
+START = time.perf_counter()
 STUDENT_YAML = REPO / "experiments/mpii/hourglass/hg4_128_student.yaml"
 TEACHER_YAML = REPO / "experiments/mpii/hourglass/hg8_256x256_teacher.yaml"
 W32_YAML = REPO / "experiments/coco/hrnet/w32_256x192_adam_lr1e-3.yaml"
@@ -239,7 +260,7 @@ COCO_IMAGES = 64
 COCO_SET = "val2017"
 OKS_MARGIN = 1e-5          # float32 vs float64 OKS-NMS may differ inside it
 TRAIN_BATCH = 32
-TRAIN_STEPS = 20           # on one repeated batch: the loss must fall
+TRAIN_STEPS = 10           # on one repeated batch: the loss must fall
 P4_PER_STEP = 59           # 3x3 stride-1 convs of the student (tests pin it)
 K1_PER_TRAIN_STEP = 2      # the PCK counts' argmaxes: output and target
 K1_PER_EVAL_BATCH = 3      # the decode and the two PCK argmaxes
@@ -248,7 +269,7 @@ MPII_PEOPLE = 56           # two eval batches of 32, the last one padded
 # from JPEGs its synthetic writer put on disk (256x256, the model's input)
 LOADER_TRAIN_IMAGES = 64   # two train batches of 32 per epoch
 LOADER_EPOCHS = 2          # 4 train steps on the main path
-LOADER_TIMED_EPOCHS = 3    # per timing: 6 steps, or 3 epochs of the loader
+LOADER_TIMED_EPOCHS = 2    # per timing: 4 steps, or 2 epochs of the loader
 LOADER_ROUND_TRIP_IMAGES = 16
 # float32 train-step parity (one FPD step at full width, batch 2, TF32
 # off).  A float32 step is only good to a few percent in its gradients:
@@ -279,7 +300,7 @@ WGRAD_STEP_PARAMS_OFF = 1e-4
 # P4 gets the chains' 8 x 26 = 208 filter gradients and layer1's 4.
 HRNET_CHAINS = 26
 HRNET_P4_PER_STEP = 212
-HRNET_TRAIN_STEPS = 10     # on one repeated batch: the loss must fall
+HRNET_TRAIN_STEPS = 5      # on one repeated batch: the loss must fall
 # float32 FPD W48 -> W32 step parity (full width, batch 2, TF32 off), as
 # (loss rtol, BN stats, moments relative L2, worst moment tensor, share of
 # live parameters off by > 1% of lr).  Card against CPU at phase 13's bars:
@@ -302,7 +323,7 @@ HRNET_P5_STEP_BARS = (1e-5, 1e-4, 0.03, 0.5, 1e-3)
 # train step.
 RN50_YAML = REPO / "experiments/coco/resnet/res50_256x192_d256x3_adam_lr1e-3.yaml"
 RN50_ROUTED = 13
-RN50_TRAIN_STEPS = 10      # on one repeated batch: the loss must fall
+RN50_TRAIN_STEPS = 5       # on one repeated batch: the loss must fall
 # conv3x3_fwd against its plain version: the bars of
 # fhpe_tpu_torch/tools/profile_conv.py (REL_TOL).
 
@@ -326,6 +347,16 @@ RN50_ROUTE_STEP_BARS = (1e-6, 1e-6, 3e-3, 1e-2, 1e-4)
 CLI_RUN_TAG = "chip_smoke"
 CLI_FPD_EPOCHS = 2         # then a resume to a third
 CLI_COCO_VALID = 64
+
+# phase 27, each captured step against its eager body from one state:
+# after GRAPH_CHECK_STEPS steps the graph must be bit-equal to eager
+# wherever eager is bit-equal to a second eager run, and elsewhere within
+# GRAPH_SPREAD_FACTOR times that run's relative L2 distance (the two
+# distances are draws of one spread: the same kernels on the same data,
+# apart from the order of atomic sums); timings of GRAPH_TIMED_STEPS steps.
+GRAPH_CHECK_STEPS = 5
+GRAPH_SPREAD_FACTOR = 3.0
+GRAPH_TIMED_STEPS = 5
 
 # Card peaks for the bound (NVIDIA H100 SXM data sheet, dense).
 HBM_BYTES_PER_S = 3.35e12
@@ -377,7 +408,8 @@ CHAIN_GRAD_REL_L2 = 1e-2
 
 
 def log(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    """One line of a phase, stamped with the seconds since the start."""
+    print(f"[{phase} {time.perf_counter() - START:.1f}s] {msg}", flush=True)
 
 
 def on_card(device, n: int) -> int:
@@ -405,19 +437,8 @@ def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S
 # -- launch counts of the main path -----------------------------------------
 
 def _counters():
-    from fhpe_tpu_torch.ops import (branch_chain, conv3x3_fwd, conv_wgrad,
-                                    decode, nms_torch)
-    return {"decode_heatmaps": (decode, "decode_kernel_launches"),
-            "pairwise_oks": (nms_torch, "pairwise_oks_launches"),
-            "greedy_nms_mask": (nms_torch, "greedy_nms_launches"),
-            "oks_nms_segments": (nms_torch, "oks_nms_segment_launches"),
-            "conv3x3_wgrad": (conv_wgrad, "conv_wgrad_launches"),
-            "branch_chain_eval": (branch_chain,
-                                  "branch_chain_eval_launches"),
-            "branch_chain_train": (branch_chain,
-                                   "branch_chain_train_launches"),
-            "conv3x3_fwd": (conv3x3_fwd, "conv3x3_fwd_launches"),
-            "conv3x3_fwd_f32": (conv3x3_fwd, "conv3x3_fwd_f32_launches")}
+    from fhpe_tpu_torch.utils.graph import launch_counters
+    return launch_counters()
 
 
 def expected(device, **launches) -> dict:
@@ -477,16 +498,37 @@ def seeded_model(cfg, seed: int):
         return get_pose_net(cfg)
 
 
+_CPU_WEIGHTS = {}
+
+
+def once(key, build):
+    """A copy of ``build()``, built on the first call for ``key``: He-scale
+    weights take seconds on the CPU, and several phases use the same."""
+    if key not in _CPU_WEIGHTS:
+        _CPU_WEIGHTS[key] = build()
+    return copy.deepcopy(_CPU_WEIGHTS[key])
+
+
 def he_model(cfg, seed: int):
     """He-scale weights with BN statistics from one batch, on the CPU
     (``models.common.he_scale_weights``): the reference init would give
     HRNet heatmaps of ~0 that decode to (0, 0)."""
     from fhpe_tpu_torch.models import get_pose_net
     from fhpe_tpu_torch.models.common import he_scale_weights
-    model = get_pose_net(cfg)
-    w, h = (int(v) for v in cfg.MODEL.IMAGE_SIZE)
-    he_scale_weights(model, seed, (h, w))
-    return model
+
+    def build():
+        model = get_pose_net(cfg)
+        w, h = (int(v) for v in cfg.MODEL.IMAGE_SIZE)
+        he_scale_weights(model, seed, (h, w))
+        return model
+    return once((str(cfg.MODEL), seed), build)
+
+
+def hrnet_pair(scfg, tcfg):
+    """``train_parity.pair_weights`` of the HRNet FPD pair, built once."""
+    from fhpe_tpu_torch.tools.train_parity import pair_weights
+    return once((str(scfg.MODEL), str(tcfg.MODEL)),
+                lambda: pair_weights(scfg, tcfg))
 
 
 def make_requests(cfg, n: int, seed: int):
@@ -1225,8 +1267,9 @@ def phase_fpd_train(device, totals, label):
     scfg, tcfg = fpd_cfgs()
     state = create_train_state(scfg, seeded_model(scfg, 0), device=device)
     teacher = seeded_model(tcfg, 100).to(device)
+    # the eager body: phase 27 holds the captured step against it
     step = make_fpd_train_step(scfg, teacher, tcfg,
-                               prepare=make_batch_preprocessor(scfg))
+                               prepare=make_batch_preprocessor(scfg)).eager
     batch = train_batch(scfg, TRAIN_BATCH, seed=7, device=device)
 
     shapes = []
@@ -1474,7 +1517,7 @@ def phase_hrnet_fpd_train(device, totals, label):
     from fhpe_tpu_torch.tools.train_parity import (HRNET_STUDENT_YAML,
                                                    HRNET_TEACHER_YAML,
                                                    hrnet_fpd_cfgs,
-                                                   pair_weights, train_batch)
+                                                   train_batch)
     from fhpe_tpu_torch.train import (create_train_state,
                                       make_batch_preprocessor,
                                       make_fpd_train_step)
@@ -1484,13 +1527,15 @@ def phase_hrnet_fpd_train(device, totals, label):
 
     scfg, tcfg = hrnet_fpd_cfgs()
     t0 = time.perf_counter()
-    student, teacher = pair_weights(scfg, tcfg)
+    student, teacher = hrnet_pair(scfg, tcfg)
     log("hrnet-train", f"He-scale W32 student and W48 teacher on the CPU in "
         f"{time.perf_counter() - t0:.1f} s")
     state = create_train_state(scfg, student, device=device)
     teacher = teacher.to(device)
+    # the eager body (its routes are toggled below; phase 27 holds the
+    # captured step against it)
     step = make_fpd_train_step(scfg, teacher, tcfg,
-                               prepare=make_batch_preprocessor(scfg))
+                               prepare=make_batch_preprocessor(scfg)).eager
     batch = train_batch(scfg, TRAIN_BATCH, seed=17, device=device)
     chains = {"student": fused_chains(state.model),
               "teacher": fused_chains(teacher)}
@@ -1633,12 +1678,12 @@ def phase_hrnet_f32_parity(device) -> None:
     on the card with P5 against the card with every chain unrouted (its
     blocks as modules)."""
     from fhpe_tpu_torch.tools.train_parity import (describe, hrnet_fpd_cfgs,
-                                                   one_fpd_step, pair_weights,
+                                                   one_fpd_step,
                                                    step_diff, tf32_off,
                                                    train_batch)
 
     scfg, tcfg = hrnet_fpd_cfgs("float32")
-    student, teacher = pair_weights(scfg, tcfg)
+    student, teacher = hrnet_pair(scfg, tcfg)
     batch = train_batch(scfg, 2, seed=9, device="cpu")
     with tf32_off():
         card = one_fpd_step(scfg, tcfg, student, teacher, batch, device)
@@ -1829,8 +1874,11 @@ def phase_eval_mpii(model, device, out_dir, totals) -> None:
     outs, counts = main_path_run(totals, lambda: [step(model, b)
                                                   for b in batches])
     want = expected(device, decode_heatmaps=K1_PER_EVAL_BATCH * len(batches))
-    if counts != want:
-        raise AssertionError(f"eval: launches {counts}, want {want}")
+    # one graph serves every batch, the padded last one too
+    captures = step.captured.captures
+    if counts != want or captures != on_card(device, 1):
+        raise AssertionError(f"eval: launches {counts}, want {want}; "
+                             f"{captures} captures")
     preds = torch.cat([torch.cat([o["preds"], o["maxvals"][..., None]], -1)
                        for o in outs])[:MPII_PEOPLE].cpu().numpy()
     hits = sum(o["hits"] for o in outs).cpu().numpy()
@@ -1994,7 +2042,33 @@ def phase_loader(state, device, totals, label, root: Path) -> None:
 
             busy = busy_ms(device_events(timed))
             idle[name] = f"{1 - busy / walls[0]:.3f}"
-    log("loader", "warm FPD step (bf16, batch "
+    # the upload device_batch makes (pageable host memory, synchronous),
+    # and the captured step's copy of it into its static inputs (device to
+    # device), by CUDA events
+    host = next(iter(train_loader))
+    uploads = []
+    for _ in range(5):
+        sync(device)
+        t0 = time.perf_counter()
+        dev = device_batch(scfg, host, device)
+        sync(device)
+        uploads.append((time.perf_counter() - t0) * 1e3)
+    copy_in = "not measured"
+    if device.type == "cuda":
+        static = {k: torch.empty_like(v) for k, v in dev.items()}
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        for _ in range(20):
+            for k, v in dev.items():
+                static[k].copy_(v, non_blocking=True)
+        end.record()
+        torch.cuda.synchronize()
+        copy_in = f"{start.elapsed_time(end) / 20:.3f} ms"
+    log("loader", f"one batch's upload (device_batch, {len(dev)} tensors, "
+        f"{sum(v.numel() * v.element_size() for v in dev.values()) / 1e6:.2f}"
+        f" MB) {sorted(uploads)[2]:.3f} ms host (median of 5), its copy "
+        f"into the graph's static inputs {copy_in} on the device")
+    log("loader", "warm captured FPD step (bf16, batch "
         f"{TRAIN_BATCH}, {n_img} images per run, in turns) fed by the "
         "loader "
         + ", ".join(f"{r:.1f}" for r in rates["loader"])
@@ -2107,7 +2181,9 @@ def phase_rn50_train(device, totals, label):
 
     cfg = rn50_cfg()
     state = create_train_state(cfg, he_model(cfg, 300), device=device)
-    step = make_train_step(cfg, prepare=make_batch_preprocessor(cfg))
+    # the eager body (its route is toggled below; phase 27 holds the
+    # captured step against it)
+    step = make_train_step(cfg, prepare=make_batch_preprocessor(cfg)).eager
     batch = train_batch(cfg, TRAIN_BATCH, seed=27, device=device)
     routed = fwd_kernel_convs(state.model)
     shapes = []
@@ -2387,10 +2463,12 @@ def phase_fpd_cli(device, totals, label, mpii: Path) -> None:
     4x128, teacher 8x256 from a seeded ``.pth``, 256x256, bf16, batch 32,
     Adam) over phase 14b's synthetic MPII JPEGs under ``mpii``: 2 epochs,
     a resume to a third, then ``cli.test`` on the result."""
+    import torch
     from fhpe_tpu_torch.cli import fpd_train as fpd_cli
     from fhpe_tpu_torch.cli import test as test_cli
     from fhpe_tpu_torch.config import load_config
     from fhpe_tpu_torch.tools.train_parity import STUDENT_YAML as FPD_YAML
+    from fhpe_tpu_torch.train import state as train_state
     from fhpe_tpu_torch.utils import checkpoint as ck
 
     with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
@@ -2472,6 +2550,29 @@ def phase_fpd_cli(device, totals, label, mpii: Path) -> None:
             f"{test['result']:.4f}, the last validation's {last[0]:.4f}: "
             f"{verdict}; " + cli_speeds(test["lines"]) + f"; {label}")
 
+        # the first run again with torch's default Adam and the eager step
+        # (PR 13's route): where its PCKh differs, capturable Adam's
+        # float32 bias correction made it (phase 27 holds graph against
+        # eager with the same Adam bit-equal)
+        def default_adam(cfg, params):
+            return torch.optim.Adam(list(params), lr=float(cfg.TRAIN.LR),
+                                    betas=(0.9, 0.999), eps=1e-8)
+
+        eager_step = fpd_cli.make_fpd_train_step
+        plain_argv = [a.replace(str(root / "out"), str(root / "plain"))
+                      for a in argv]
+        with mock.patch.object(train_state, "make_optimizer",
+                               default_adam), mock.patch.object(
+                fpd_cli, "make_fpd_train_step",
+                lambda *a, **k: eager_step(*a, **k).eager):
+            plain = cli_run(fpd_cli, plain_argv + [
+                "TRAIN.END_EPOCH", str(CLI_FPD_EPOCHS)], Counter())
+        log("fpd-cli", "PCKh Mean after each epoch, captured steps with "
+            "capturable Adam " + ", ".join(f"{v[0]:.4f}" for v in
+                                           run["vals"][2:])
+            + "; eager steps with torch's default Adam "
+            + ", ".join(f"{v[0]:.4f}" for v in plain["vals"][2:]))
+
 
 def phase_rn50_cli(device, totals, label) -> None:
     """Phase 26: ``cli.train`` on PoseResNet-50 COCO
@@ -2539,6 +2640,360 @@ def phase_rn50_cli(device, totals, label) -> None:
         log("rn50-cli", f"cli.test on final_state.pth: AP "
             f"{test['result']:.6f}, the last validation's {ap:.6f}: "
             f"{verdict}; " + cli_speeds(test["lines"]) + f"; {label}")
+
+
+# -- phase 27: the captured steps against their eager bodies -----------------
+
+def state_tensors(state) -> dict:
+    """{group: {name: tensor}} of a train state: parameters, buffers and
+    Adam's moments."""
+    names = {id(p): k for k, p in state.model.named_parameters()}
+    groups = {"params": dict(state.model.named_parameters()),
+              "buffers": dict(state.model.named_buffers()),
+              "exp_avg": {}, "exp_avg_sq": {}}
+    for p, st in state.optimizer.state.items():
+        for key in ("exp_avg", "exp_avg_sq"):
+            groups[key][names[id(p)]] = st[key]
+    return groups
+
+
+def graph_agreement(graph: dict, eager: dict, eager2: dict) -> dict:
+    """Graph against eager per group of tensors ({group: {name: tensor}},
+    or {"outputs": {...}}), beside the eager body against itself (a second
+    run from the same state): where eager is bit-equal to itself the graph
+    must be bit-equal to it; elsewhere its relative L2 distance from eager
+    must stay within ``GRAPH_SPREAD_FACTOR`` times eager's own.  Returns
+    {group: (tensors, self-equal, graph-equal of those, graph relL2,
+    eager relL2)}; raises beyond the bars."""
+    import torch
+    out, bad = {}, []
+    for group, tensors in eager.items():
+        n_self = n_equal = 0
+        sq = {"g": 0.0, "e": 0.0, "ref": 0.0}
+        for name, a in tensors.items():
+            b, g = eager2[group][name], graph[group][name]
+            if torch.equal(a, b):
+                n_self += 1
+                n_equal += torch.equal(g, a)
+                if not torch.equal(g, a):
+                    bad.append(f"{group}:{name}")
+                continue
+            a64 = a.detach().double()
+            sq["g"] += float(((g.detach().double() - a64) ** 2).sum())
+            sq["e"] += float(((b.detach().double() - a64) ** 2).sum())
+            sq["ref"] += float((a64 ** 2).sum())
+        ref = math.sqrt(sq["ref"]) or 1.0
+        rg, re_ = math.sqrt(sq["g"]) / ref, math.sqrt(sq["e"]) / ref
+        if rg > GRAPH_SPREAD_FACTOR * re_:
+            bad.append(f"{group}: relative L2 {rg:.3g} against eager's own "
+                       f"{re_:.3g}")
+        out[group] = (len(tensors), n_self, n_equal, rg, re_)
+    if bad:
+        raise AssertionError(f"graph against eager: {bad[:5]} "
+                             f"({len(bad)} in all); {out}")
+    return out
+
+
+def agreement_text(agree: dict) -> str:
+    return "; ".join(
+        f"{g} {n_self}/{n} tensors eager-deterministic, graph bit-equal on "
+        f"{n_eq}" + (f", the rest relative L2 graph {rg:.3g} vs eager's own "
+                     f"{re_:.3g}" if n_self < n else "")
+        for g, (n, n_self, n_eq, rg, re_) in agree.items())
+
+
+def in_turns(fns: dict, n_items: int, device) -> dict:
+    """{name: images/s, median of 3} of ``fns`` (each N steps), timed by the
+    host clock ended by a synchronise, in turns (a, b, b, a, a, b)."""
+    names = list(fns)
+    walls = {k: [] for k in names}
+    for name in (names[0], names[1], names[1], names[0], names[0],
+                 names[1]):
+        sync(device)
+        t0 = time.perf_counter()
+        fns[name]()
+        sync(device)
+        walls[name].append(time.perf_counter() - t0)
+    return {k: n_items / sorted(v)[1] for k, v in walls.items()}
+
+
+def one_call_profile(fn) -> dict:
+    """One warm call of ``fn`` under the profiler: the device ops the host
+    launched (a graph launch counts once), the kernels the device ran,
+    kernel ms, device busy ms, wall ms and the idle share."""
+    import torch
+    from fhpe_tpu_torch.utils.profiling import (DEVICE_CATEGORIES, busy_ms,
+                                                host_launches, trace_events)
+    walls = []
+
+    def timed():
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    events = trace_events(timed)
+    dev = [e for e in events if e.get("cat") in DEVICE_CATEGORIES]
+    busy = busy_ms(dev)
+    return {"host_launches": host_launches(events),
+            "kernels": sum(e["cat"] == "kernel" for e in dev),
+            "kernel_ms": sum(float(e["dur"]) for e in dev
+                             if e["cat"] == "kernel") / 1e3,
+            "busy_ms": busy, "wall_ms": walls[0],
+            "idle": 1 - busy / walls[0]}
+
+
+def profile_text(prof: dict) -> str:
+    return (f"{prof['host_launches']} device ops launched by the host, "
+            f"{prof['kernels']} kernels run, kernel {prof['kernel_ms']:.2f} "
+            f"ms, busy {prof['busy_ms']:.2f} of {prof['wall_ms']:.2f} ms "
+            f"(idle share {prof['idle']:.3f})")
+
+
+def graph_vs_eager_train(phase, make_state, make_step, batch, modules,
+                         per_step, totals, label):
+    """A captured train step against its eager body on the card (both
+    with capturable Adam), from one state: agreement after
+    ``GRAPH_CHECK_STEPS`` steps with the eager body's own spread beside
+    it, ``set_lr(0)`` then one replay leaving the parameters unchanged,
+    capturable against non-capturable Adam over one eager step, images/s
+    in turns and a profile of one replay and one eager step.  Returns
+    {"graph", "eager"} images/s."""
+    import torch
+    from fhpe_tpu_torch.train import set_lr
+    from fhpe_tpu_torch.utils.graph import storage_fingerprint
+
+    base = make_state()
+    runs = {}
+    for tag in ("graph", "eager", "eager2"):
+        st = copy.deepcopy(base)
+        step = make_step()
+        fn = step if tag == "graph" else step.eager
+        t0 = time.perf_counter()
+
+        def run(st=st, fn=fn):
+            return [fn(st, batch)[1] for _ in range(GRAPH_CHECK_STEPS)]
+
+        if tag == "graph":
+            metrics, counts = main_path_run(totals, run)
+            want = expected(batch["image"].device, **{
+                k: v * GRAPH_CHECK_STEPS for k, v in per_step.items()})
+            if counts != want:
+                raise AssertionError(f"{phase}: graph launches {counts} for "
+                                     f"{GRAPH_CHECK_STEPS} steps, want "
+                                     f"{want}")
+        else:
+            metrics = run()
+        sync(batch["image"].device)
+        runs[tag] = (st, metrics, step, time.perf_counter() - t0)
+    g_state, g_metrics, g_step, g_wall = runs["graph"]
+    e_state, e_metrics, e_step, _ = runs["eager"]
+
+    def grouped(tag):
+        st, ms = runs[tag][:2]
+        groups = state_tensors(st)
+        groups["metrics"] = {f"{k}@{i}": v for i, m in enumerate(ms)
+                             for k, v in m.items()}
+        return groups
+
+    agree = graph_agreement(grouped("graph"), grouped("eager"),
+                            grouped("eager2"))
+    log(phase, f"{GRAPH_CHECK_STEPS} steps from one state (bf16, batch "
+        f"{TRAIN_BATCH}; the graph's first call eager, "
+        f"{g_step.captured.captures} capture, {GRAPH_CHECK_STEPS - 1} "
+        f"replays in {g_wall:.2f} s): "
+        + agreement_text(agree))
+
+    # set_lr reaches the captured Adam: rate 0 leaves the parameters
+    lr = float(g_state.optimizer.param_groups[0]["lr"])
+    before = [p.detach().clone() for p in g_state.model.parameters()]
+    set_lr(g_state, 0.0)
+    g_step(g_state, batch)
+    same = all(torch.equal(a, p) for a, p in
+               zip(before, g_state.model.parameters()))
+    set_lr(g_state, lr)
+    g_step(g_state, batch)
+    moved = sum(not torch.equal(a, p) for a, p in
+                zip(before, g_state.model.parameters()))
+    if not same or not moved:
+        raise AssertionError(f"{phase}: after set_lr(0) one replay left "
+                             f"the parameters {'un' if same else ''}changed;"
+                             f" at lr {lr} it moved {moved} tensors")
+
+    # capturable Adam (device float32 bias correction) against torch's
+    # default Adam over one eager step from the same state
+    cap, plain = copy.deepcopy(base), copy.deepcopy(base)
+    group = plain.optimizer.param_groups[0]
+    plain.optimizer = torch.optim.Adam(
+        plain.model.parameters(), lr=float(group["lr"]), betas=group["betas"],
+        eps=group["eps"])
+    e_step.eager(cap, batch)
+    e_step.eager(plain, batch)
+    ups = [(a.detach().double() - b.detach().double()).abs().max().item()
+           / lr for a, b in zip(cap.model.parameters(),
+                                plain.model.parameters())]
+    n_off = sum(int((a != b).sum()) for a, b in
+                zip(cap.model.parameters(), plain.model.parameters()))
+    n_all = sum(p.numel() for p in cap.model.parameters())
+    del cap, plain
+    t0 = time.perf_counter()
+    for _ in range(20):
+        storage_fingerprint((g_state.model, *modules), g_state.optimizer)
+    fp_us = (time.perf_counter() - t0) / 20 * 1e6
+    log(phase, f"set_lr(0): one replay left every parameter bit-equal, "
+        f"at lr {lr:g} the next moved {moved} tensors; capturable Adam "
+        f"against the default after one eager step: {n_off} of {n_all} "
+        f"parameters differ, by at most {max(ups):.3g} x lr; storage "
+        f"fingerprint {fp_us:.0f} us per call (host)")
+
+    def graph_steps():
+        for _ in range(GRAPH_TIMED_STEPS):
+            g_step(g_state, batch)
+
+    def eager_steps():
+        for _ in range(GRAPH_TIMED_STEPS):
+            e_step.eager(e_state, batch)
+
+    rates = in_turns({"graph": graph_steps, "eager": eager_steps},
+                     GRAPH_TIMED_STEPS * TRAIN_BATCH, batch["image"].device)
+    log(phase, f"graph {rates['graph']:.1f} images/s, eager "
+        f"{rates['eager']:.1f} (medians of 3 x {GRAPH_TIMED_STEPS} steps in "
+        f"turns); {label}")
+    if batch["image"].is_cuda:
+        log(phase, "one replay: " + profile_text(one_call_profile(
+            lambda: g_step(g_state, batch))) + "; one eager step: "
+            + profile_text(one_call_profile(
+                lambda: e_step.eager(e_state, batch))))
+    return rates
+
+
+def graph_vs_eager_forward(phase, step, owner, batches, per_call, totals,
+                           label):
+    """A captured forward-only step (eval or serve) against its eager
+    body: bit-equal outputs on a batch after the capture, images/s in
+    turns, a profile of one replay and one eager call."""
+    import torch
+    step(owner, batches[0])                 # eager, then the capture
+    graph, counts = main_path_run(totals, lambda: step(owner, batches[1]))
+    want = expected(batches[1]["image"].device, **per_call)
+    if counts != want:
+        raise AssertionError(f"{phase}: launches per replay {counts}, want "
+                             f"{want}")
+    eager = step.eager(owner, batches[1])
+    diff = [k for k in eager if not torch.equal(graph[k], eager[k])]
+    if diff:
+        raise AssertionError(f"{phase}: graph != eager in {diff}")
+    b = len(batches[1]["image"])
+    rates = in_turns(
+        {"graph": lambda: [step(owner, batches[1])
+                           for _ in range(GRAPH_TIMED_STEPS)],
+         "eager": lambda: [step.eager(owner, batches[1])
+                           for _ in range(GRAPH_TIMED_STEPS)]},
+        GRAPH_TIMED_STEPS * b, batches[1]["image"].device)
+    log(phase, f"replay bit-equal to the eager body in all of "
+        f"{sorted(eager)}; graph {rates['graph']:.1f} images/s, eager "
+        f"{rates['eager']:.1f} (medians of 3 x {GRAPH_TIMED_STEPS} calls in "
+        f"turns, batch {b}); {label}")
+    if batches[1]["image"].is_cuda:
+        log(phase, "one replay: " + profile_text(one_call_profile(
+            lambda: step(owner, batches[1]))) + "; one eager call: "
+            + profile_text(one_call_profile(
+                lambda: step.eager(owner, batches[1]))))
+    return rates
+
+
+def phase_graphs(device, totals, label) -> None:
+    """Phase 27: each captured step (the hourglass FPD step, W48 -> W32
+    FPD, the RN-50 plain step, MPII eval of the hourglass student, W32
+    serving; full width and depth, bf16, batch 32, seeded weights) against
+    its eager body on the card."""
+    import torch
+    from fhpe_tpu_torch.data import MPII_FLIP_PAIRS
+    from fhpe_tpu_torch.geometry.flip import flip_pair_permutation
+    from fhpe_tpu_torch.serve import Predictor
+    from fhpe_tpu_torch.tools.train_parity import (fpd_cfgs, hrnet_fpd_cfgs,
+                                                   rn50_cfg, train_batch)
+    from fhpe_tpu_torch.train import (create_train_state,
+                                      make_batch_preprocessor,
+                                      make_eval_step, make_fpd_train_step,
+                                      make_train_step)
+
+    # the hourglass FPD step (phase 12's pair)
+    scfg, tcfg = fpd_cfgs()
+    teacher = seeded_model(tcfg, 100).to(device)
+    graph_vs_eager_train(
+        "graph-fpd-hg",
+        lambda: create_train_state(scfg, seeded_model(scfg, 0),
+                                   device=device),
+        lambda: make_fpd_train_step(scfg, teacher, tcfg,
+                                    prepare=make_batch_preprocessor(scfg)),
+        train_batch(scfg, TRAIN_BATCH, seed=7, device=device), (teacher,),
+        {"conv3x3_wgrad": P4_PER_STEP, "decode_heatmaps": K1_PER_TRAIN_STEP},
+        totals, label)
+
+    # MPII eval of the hourglass student (phase 14's step), two batches
+    eval_step = make_eval_step(scfg, flip_pair_permutation(
+        int(scfg.MODEL.NUM_JOINTS), MPII_FLIP_PAIRS),
+        prepare=make_batch_preprocessor(scfg))
+    student = seeded_model(scfg, 0).to(device)
+    batches = []
+    for seed in (31, 32):
+        b = train_batch(scfg, TRAIN_BATCH, seed=seed, device=device)
+        b["inv_trans"] = torch.tensor(
+            [[4.0, 0.0, 10.0], [0.0, 4.0, 20.0]],
+            device=device).expand(TRAIN_BATCH, 2, 3).contiguous()
+        b["valid"] = torch.ones(TRAIN_BATCH, device=device)
+        batches.append(b)
+    graph_vs_eager_forward("graph-eval-hg", eval_step, student, batches,
+                           {"decode_heatmaps": K1_PER_EVAL_BATCH}, totals,
+                           label)
+    del teacher, student, eval_step
+    torch.cuda.empty_cache()
+
+    # the W48 -> W32 FPD step (phase 17's pair)
+    scfg, tcfg = hrnet_fpd_cfgs()
+    student_cpu, teacher = hrnet_pair(scfg, tcfg)
+    teacher = teacher.to(device)
+    graph_vs_eager_train(
+        "graph-fpd-hrnet",
+        lambda: create_train_state(scfg, copy.deepcopy(student_cpu),
+                                   device=device),
+        lambda: make_fpd_train_step(scfg, teacher, tcfg,
+                                    prepare=make_batch_preprocessor(scfg)),
+        train_batch(scfg, TRAIN_BATCH, seed=17, device=device), (teacher,),
+        {"branch_chain_eval": HRNET_CHAINS,
+         "branch_chain_train": HRNET_CHAINS,
+         "conv3x3_wgrad": HRNET_P4_PER_STEP,
+         "decode_heatmaps": K1_PER_TRAIN_STEP}, totals, label)
+    del teacher, student_cpu
+    torch.cuda.empty_cache()
+
+    # W32 serving (phase 8's Predictor)
+    w32 = serve_cfg(W32_YAML)
+    p = Predictor(w32, he_model(w32, 200), device=device)
+    crops, _, _ = make_requests(w32, 2 * p.batch_size, 201)
+    inv = torch.tensor([[4.0, 0.0, 10.0], [0.0, 4.0, 20.0]],
+                       device=device).expand(p.batch_size, 2, 3).contiguous()
+    batches = [{"image": torch.from_numpy(c).to(device), "inv_trans": inv}
+               for c in (crops[:p.batch_size], crops[p.batch_size:])]
+    graph_vs_eager_forward("graph-serve-w32", p.step, p.model, batches,
+                           {"decode_heatmaps": 1,
+                            "branch_chain_eval": chains_per_chunk(p)},
+                           totals, label)
+    del p
+    torch.cuda.empty_cache()
+
+    # the RN-50 plain step (phase 22's)
+    cfg = rn50_cfg()
+    model = he_model(cfg, 300)
+    graph_vs_eager_train(
+        "graph-rn50",
+        lambda: create_train_state(cfg, copy.deepcopy(model), device=device),
+        lambda: make_train_step(cfg, prepare=make_batch_preprocessor(cfg)),
+        train_batch(cfg, TRAIN_BATCH, seed=27, device=device), (),
+        {"conv3x3_fwd": RN50_ROUTED, "conv3x3_wgrad": RN50_ROUTED,
+         "decode_heatmaps": K1_PER_TRAIN_STEP}, totals, label)
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2631,6 +3086,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_fpd_cli(device, totals, label, mpii)
     phase_rn50_cli(device, totals, label)
+    phase_graphs(device, totals, label)
 
     for name in KERNELS:
         if totals[name] <= 0:

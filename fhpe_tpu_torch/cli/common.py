@@ -15,7 +15,8 @@ sharding (``BatchLoader``'s ``process_index`` 0 of 1):
   step takes from a host batch;
 * :func:`device_batch`: a host batch as tensors on an explicit device;
 * :func:`validate`: the eval loop (reference function.py:189-332) with
-  ``make_eval_step``, the prediction and box accumulation, the macro-PCK
+  ``make_eval_step`` (on the card a graph captured on the first batch and
+  replayed for the rest: every batch is padded to one size), the prediction and box accumulation, the macro-PCK
   meter and the TensorBoard scalars, then the dataset metric;
 * :func:`make_evaluate_fn`: the COCO branch (rescore + OKS-NMS on the card
   -> results JSON -> COCO AP), the MPII branch (PCKh against
@@ -178,7 +179,10 @@ def eval_batch_transform(cfg):
 def device_batch(cfg, batch, device, for_eval=False):
     """Host batch dict -> tensors on ``device``, the minimal transfer set
     of a train step (:func:`train_batch_keys`) or an eval step
-    (:func:`eval_batch_transform`)."""
+    (:func:`eval_batch_transform`).  On the card a captured step then
+    copies these into its graph's static inputs, device to device: the
+    upload stays here, so the eager bodies and the CPU path take the same
+    batch."""
     if for_eval:
         host = eval_batch_transform(cfg)(batch)
     else:

@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.graph import constant
+
 
 def generate_target_torch(joints, joints_vis, heatmap_size, image_size, sigma,
                           joints_weight=None,
@@ -58,8 +60,7 @@ def generate_target_torch(joints, joints_vis, heatmap_size, image_size, sigma,
     target = target * stamp[..., None, None]
 
     if use_different_joints_weight and joints_weight is not None:
-        weight = weight * torch.as_tensor(joints_weight, dtype=torch.float32,
-                                          device=dev)
+        weight = weight * constant(joints_weight, torch.float32, dev)
     return target.to(torch.float32), weight
 
 

@@ -93,7 +93,14 @@ def _update_running_stats(bns, mean, var, n: int) -> None:
     """``nn.BatchNorm2d``'s train-mode update of each BN's running mean and
     (Bessel-corrected) variance from the batch statistics rows."""
     torch._foreach_add_([bn.num_batches_tracked for bn in bns], 1)
-    # momentum None: the cumulative moving average
+    # momentum None: the cumulative moving average, whose factor is read
+    # from the card; a captured step would freeze it at the capture
+    if (any(bn.momentum is None for bn in bns)
+            and mean.is_cuda and torch.cuda.is_current_stream_capturing()):
+        raise RuntimeError(
+            "BatchNorm momentum None (a cumulative average) cannot run in a "
+            "captured step: its factor 1 / num_batches_tracked is read from "
+            "the card; set a momentum")
     fs = [1.0 / float(bn.num_batches_tracked) if bn.momentum is None
           else bn.momentum for bn in bns]
     bessel = n / max(n - 1, 1)

@@ -55,8 +55,9 @@ from .conv3x3_fwd import Bf16Plan, bf16_plan
 BN_EPS = 1e-5
 
 # Chain calls that reached each kernel in this process (one per call, not
-# per CUDA launch); a run reads them to show the main path went through the
-# kernels.
+# per CUDA launch; a captured step takes back its capture's calls and adds
+# them again at each replay, utils/graph.py); a run reads them to show the
+# main path went through the kernels.
 branch_chain_eval_launches = 0
 branch_chain_train_launches = 0
 

@@ -33,8 +33,10 @@ import torch.nn.functional as F
 from . import _build
 
 # Launches of the kernel in this process, by output dtype (one per call
-# that reaches the kernel): bf16 out (P2, P3) and float32 out (P1).  A run
-# reads them to show the main path went through the kernel.
+# that reaches the kernel; a captured step takes back its capture's calls
+# and adds them again at each replay, utils/graph.py): bf16 out (P2, P3)
+# and float32 out (P1).  A run reads them to show the main path went
+# through the kernel.
 conv3x3_fwd_launches = 0
 conv3x3_fwd_f32_launches = 0
 

@@ -30,7 +30,9 @@ import torch.nn.functional as F
 from . import _build
 
 # Launches of the wgrad kernel in this process (one per call that reaches
-# the kernel); a run reads it to show the main path went through the kernel.
+# the kernel; a captured step takes back its capture's calls and adds them
+# again at each replay, utils/graph.py); a run reads it to show the main
+# path went through the kernel.
 conv_wgrad_launches = 0
 
 _CUDA_DTYPES = (torch.float32, torch.bfloat16)
@@ -244,6 +246,10 @@ def _wgrad_kernel(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     if x.numel() == 0:
         return out.zero_()
     if x.dtype == torch.bfloat16:
+        # The plan depends on the addresses.  A captured step
+        # (utils/graph.py) bakes this plan into its graph, which is sound
+        # because the graph's memory pool gives x and dy the same
+        # addresses on every replay.
         align = min(16, *(p & -p for p in (x.data_ptr(), dy.data_ptr())))
         plan = bf16_plan(b, c, h, w, align)
         chunk, slices = plan.tiles_per_slice, plan.slices

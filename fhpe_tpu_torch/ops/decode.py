@@ -24,7 +24,9 @@ from ..geometry.affine import get_affine_transform
 from . import _build
 
 # Launches of the decode kernel in this process (one per call that reaches
-# the kernel); a run reads it to show the main path went through the kernel.
+# the kernel; a captured step takes back its capture's calls and adds them
+# again at each replay, utils/graph.py); a run reads it to show the main
+# path went through the kernel.
 decode_kernel_launches = 0
 
 

@@ -9,8 +9,13 @@ kernel (argmax + quarter offset, ``ops/csrc/decode.cu``) and the affine
 map back to the source frame.  Only (x, y, confidence) per joint comes
 back to the host.
 
-Requests of any size run in chunks padded to the fixed batch.  Results
-stay on the device until the request's last chunk is queued.
+Requests of any size run in chunks padded to the fixed batch.  On the
+card the serve step (everything from the uint8 crops to the keypoints) is
+one CUDA graph, captured by :meth:`Predictor.warmup` or the first chunk
+and replayed for every chunk (``utils/graph.py::CapturedStep``, the
+counterpart of ``fhpe_tpu``'s ``jax.jit``); ``Predictor.step.eager`` is
+the same step run op by op.  Results stay on the device until the
+request's last chunk is queued.
 
 Typical use::
 
@@ -37,6 +42,7 @@ from ..models import get_pose_net, is_multi_output
 from ..ops.decode import decode_heatmaps, make_inverse_transforms
 from ..ops.preprocess import normalize_images
 from ..utils.dtype import autocast, compute_dtype
+from ..utils.graph import CapturedStep, storage_fingerprint
 
 
 def load_state_dict_file(path: str) -> dict:
@@ -107,6 +113,9 @@ class Predictor:
             self._perm = torch.as_tensor(
                 flip_pair_permutation(num_joints, meta["flip_pairs"]),
                 device=self.device)
+        # (model, {"image", "inv_trans"}) -> {"preds", "maxvals"}
+        self.step = CapturedStep(self._serve,
+                                 lambda m: storage_fingerprint((m,)))
 
     # -- construction ------------------------------------------------
 
@@ -136,18 +145,21 @@ class Predictor:
         return hm
 
     @torch.inference_mode()
-    def _step(self, images: torch.Tensor, inv_trans: torch.Tensor):
-        return decode_heatmaps(self.merged_heatmaps(images), inv_trans,
-                               self.post_process)
+    def _serve(self, model, batch) -> dict:
+        preds, maxvals = decode_heatmaps(self.merged_heatmaps(batch["image"]),
+                                         batch["inv_trans"], self.post_process)
+        return {"preds": preds, "maxvals": maxvals}
 
     def warmup(self) -> None:
-        """Run one zero batch (cuDNN algorithm choice, kernel build)."""
+        """Run one zero batch (cuDNN algorithm choice, kernel build) and,
+        on the card, capture the serve graph."""
         w, h = self.image_size
         b = self.batch_size
-        self._step(torch.zeros((b, h, w, 3), dtype=torch.uint8,
-                               device=self.device),
-                   torch.zeros((b, 2, 3), dtype=torch.float32,
-                               device=self.device))
+        self.step(self.model, {
+            "image": torch.zeros((b, h, w, 3), dtype=torch.uint8,
+                                 device=self.device),
+            "inv_trans": torch.zeros((b, 2, 3), dtype=torch.float32,
+                                     device=self.device)})
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -185,9 +197,11 @@ class Predictor:
             itr = torch.zeros((b, 2, 3), dtype=torch.float32)
             img[:hi - lo] = torch.from_numpy(crops[lo:hi])
             itr[:hi - lo] = torch.from_numpy(inv[lo:hi])
-            p, v = self._step(img.to(self.device), itr.to(self.device))
-            preds.append(p[:hi - lo])
-            vals.append(v[:hi - lo])
+            # fresh tensors, not the graph's: the next chunk rewrites those
+            out = self.step(self.model, {"image": img.to(self.device),
+                                         "inv_trans": itr.to(self.device)})
+            preds.append(out["preds"][:hi - lo])
+            vals.append(out["maxvals"][:hi - lo])
         num_joints = int(self.cfg.MODEL.NUM_JOINTS)
         if not preds:
             return (np.zeros((0, num_joints, 2), np.float32),

@@ -122,13 +122,14 @@ def main(argv=None) -> dict:
     b = p.batch_size
     dev_img = torch.from_numpy(crops[:b]).to(p.device)
     dev_inv = torch.zeros((b, 2, 3), dtype=torch.float32, device=p.device)
+    batch = {"image": dev_img, "inv_trans": dev_inv}
 
     def serve():
         p.predict_crops(crops, centers, scales)
 
     def step_alone():
         for _ in range(chunks):
-            p._step(dev_img, dev_inv)
+            p.step(p.model, batch)
 
     serve()
     step_alone()

@@ -6,10 +6,10 @@
     python3 -m fhpe_tpu_torch.tools.train_parity --pair hrnet
         [--width 32 --teacher-width 48 --image-size 256 --blocks 4]
 
-Runs one FPD step (``make_fpd_train_step``, Adam, TF32 off) from the same
-seeded weights and batch several ways: on the CPU in float64 (the
-reference) and float32, and with ``--device cuda`` on the card in
-float32 with the port's kernels and with one of them swapped for
+Runs one FPD step (``make_fpd_train_step``'s eager body, Adam, TF32
+off) from the same seeded weights and batch several ways: on the CPU in
+float64 (the reference) and float32, and with ``--device cuda`` on the
+card in float32 with the port's kernels and with one of them swapped for
 PyTorch's own: for the hourglass pair cuDNN's filter gradient in P4's
 place, for HRNet every branch chain unrouted from P5 (its blocks run as
 modules).  For each pair it prints how far the losses, the BN running
@@ -179,8 +179,8 @@ def one_fpd_step(scfg, tcfg, student, teacher, batch, device, wgrad=None,
                                prepare=make_batch_preprocessor(scfg))
     with (mock.patch.object(common, "conv3x3_wgrad", wgrad) if wgrad
           else contextlib.nullcontext()):
-        state, metrics = step(state, {k: v.to(device)
-                                      for k, v in batch.items()})
+        state, metrics = step.eager(state, {k: v.to(device)
+                                            for k, v in batch.items()})
     return state, {k: metrics[k].item()
                    for k in ("loss", "pose_loss", "kd_loss")}
 
@@ -201,7 +201,8 @@ def one_train_step(cfg, model, batch, device, fwd_kernel=True):
     for m in common.fwd_kernel_convs(state.model):
         m.fwd_kernel = fwd_kernel
     step = make_train_step(cfg, prepare=make_batch_preprocessor(cfg))
-    state, metrics = step(state, {k: v.to(device) for k, v in batch.items()})
+    state, metrics = step.eager(state, {k: v.to(device)
+                                        for k, v in batch.items()})
     return state, {"loss": metrics["loss"].item()}
 
 
@@ -229,7 +230,7 @@ def step_diff(a, b):
              / sum(r.square().sum() for r in ref).sqrt()).item(),
             max((d.abs().max() / r.abs().max()).item()
                 for d, r in zip(diffs, ref)))
-    lr = sb.optimizer.param_groups[0]["lr"]
+    lr = float(sb.optimizer.param_groups[0]["lr"])
     params_a = dict(sa.model.named_parameters())
     live = off = 0
     for i, (name, p) in enumerate(sb.model.named_parameters()):

@@ -9,7 +9,12 @@ Counterpart of ``fhpe_tpu/train/state.py`` (optax) with ``torch.optim``:
   ``sgd``, which is torch's SGD.
 
 The learning rate is set per epoch from :func:`lr_for_epoch` with
-:func:`set_lr`, not by a stock scheduler.
+:func:`set_lr`, not by a stock scheduler.  On a CUDA device Adam is
+``capturable`` (its step count and bias correction on the device, in
+float32) with its rate a 0-d float32 tensor on the device, so that a
+captured train step (``utils/graph.py``) reads the rate :func:`set_lr`
+writes in place.  SGD takes its rate as a host float, which a captured
+step bakes in; the step captures again when the rate changes.
 """
 
 from __future__ import annotations
@@ -52,12 +57,18 @@ def lr_for_epoch(cfg, epoch: int) -> float:
 
 
 def make_optimizer(cfg, params) -> torch.optim.Optimizer:
-    """``TRAIN.OPTIMIZER`` over ``params`` at ``TRAIN.LR``."""
+    """``TRAIN.OPTIMIZER`` over ``params`` at ``TRAIN.LR``; Adam over CUDA
+    parameters is capturable, its rate a tensor on their device."""
     name = cfg.TRAIN.OPTIMIZER
     lr = float(cfg.TRAIN.LR)
+    params = list(params)
     if name == "adam":
+        on_card = bool(params) and params[0].device.type == "cuda"
+        if on_card:
+            lr = torch.tensor(lr, dtype=torch.float32,
+                              device=params[0].device)
         return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                weight_decay=0.0)
+                                weight_decay=0.0, capturable=on_card)
     if name == "sgd":
         return torch.optim.SGD(params, lr=lr,
                                momentum=float(cfg.TRAIN.MOMENTUM),
@@ -68,9 +79,13 @@ def make_optimizer(cfg, params) -> torch.optim.Optimizer:
 
 
 def set_lr(state: TrainState, lr: float) -> TrainState:
-    """Set every parameter group's learning rate (epoch boundary)."""
+    """Set every parameter group's learning rate (epoch boundary); a
+    tensor rate is written in place, so a captured step reads it."""
     for group in state.optimizer.param_groups:
-        group["lr"] = float(lr)
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(float(lr))
+        else:
+            group["lr"] = float(lr)
     return state
 
 

@@ -1,8 +1,11 @@
 """Train, FPD and eval steps on one device.
 
 Counterpart of ``fhpe_tpu/train/step.py`` (the reference's hot loops,
-``lib/core/function.py:28-332``), eager PyTorch instead of jitted SPMD
-programs:
+``lib/core/function.py:28-332``).  Where ``fhpe_tpu`` compiles each step
+with ``jax.jit``, here each step's body is captured as a CUDA graph on
+the card, once per input signature, and replayed
+(``utils/graph.py::CapturedStep``); on the CPU the body runs as it is.
+Every step keeps its body as ``step.eager``:
 
 * :func:`make_train_step`: forward, loss (MSE or OHKM), backward,
   optimizer step, PCK counts on the device;
@@ -18,9 +21,11 @@ Every argmax (the decode and both sides of the PCK counts) goes through
 the decode kernel K1 (``ops/decode.py``); every 3x3 stride-1 filter
 gradient of the student's backward through the P4 kernel
 (``ops/conv_wgrad.py``, via ``models/common.py::Conv3x3``).  Metrics stay
-device tensors until the caller reads them.  BatchNorm keeps its running
-statistics as torch does in train mode (``fhpe_tpu``'s ``_TorchBatchNorm``
-rebuilds those semantics).
+device tensors until the caller reads them, fresh ones each step (never
+the graph's own outputs).  BatchNorm keeps its running statistics as
+torch does in train mode (``fhpe_tpu``'s ``_TorchBatchNorm`` rebuilds
+those semantics).  The bodies build no tensor from host data after their
+first call and never read the card, so that they can be captured.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from ..models import is_multi_output
 from ..ops.decode import decode_argmax, decode_heatmaps
 from ..ops.preprocess import normalize_images
 from ..utils.dtype import autocast, compute_dtype
+from ..utils.graph import CapturedStep, constant, storage_fingerprint
 from .loss import fpd_loss, stacked_mse_loss, stacked_ohkm_loss
 from .state import TrainState
 
@@ -89,8 +95,7 @@ def _pck_counts(output, target, sample_mask=None):
     pred, _ = decode_argmax(output.contiguous(), post_process=False)
     gt, _ = decode_argmax(target.contiguous(), post_process=False)
     h, w = output.shape[2], output.shape[3]
-    norm = torch.tensor([h / 10.0, w / 10.0], dtype=torch.float32,
-                        device=output.device)
+    norm = constant((h / 10.0, w / 10.0), torch.float32, output.device)
     valid = (gt[..., 0] > 1) & (gt[..., 1] > 1)
     if sample_mask is not None:
         valid = valid & (sample_mask > 0)[:, None]
@@ -146,7 +151,33 @@ def _update(state: TrainState, loss) -> None:
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
     state.optimizer.step()
-    state.step += 1
+
+
+def _compiled_train_step(body, teacher=None) -> Callable:
+    """``(state, batch) -> (state, metrics)`` around ``body(state, batch)
+    -> metrics``: the student in train mode (the teacher in eval mode),
+    the body captured on the card (:class:`CapturedStep`, over the
+    student's, the teacher's and the optimizer's storage), and
+    ``state.step`` counted on the host.  ``.eager`` is the same step with
+    the body run as it is; ``.captured`` the :class:`CapturedStep`."""
+    modules = () if teacher is None else (teacher,)
+    captured = CapturedStep(body, lambda state: storage_fingerprint(
+        (state.model, *modules), state.optimizer))
+
+    def wrap(run):
+        def step(state: TrainState, batch):
+            state.model.train()
+            if teacher is not None:
+                teacher.eval()
+            metrics = run(state, batch)
+            state.step += 1
+            return state, metrics
+        return step
+
+    step = wrap(captured)
+    step.eager = wrap(body)
+    step.captured = captured
+    return step
 
 
 def make_train_step(cfg, prepare=None) -> Callable:
@@ -156,15 +187,16 @@ def make_train_step(cfg, prepare=None) -> Callable:
     (B, J, h, w), "target_weight" (B, J)} on the state's device, or the
     raw batch a ``prepare`` closure (:func:`make_batch_preprocessor`)
     takes.  The student runs ``train()`` under ``TPU.COMPUTE_DTYPE``.
+    On the card the step is a captured graph (``.eager``: the body).
     """
     use_tw = bool(cfg.LOSS.USE_TARGET_WEIGHT)
     use_ohkm = bool(cfg.LOSS.USE_OHKM)
     topk = int(cfg.LOSS.TOPK)
     prepare = prepare or _identity_prepare
 
-    def step(state: TrainState, batch):
+    def body(state: TrainState, batch):
         batch = prepare(batch)
-        model = state.model.train()
+        model = state.model
         image = _input(model, batch["image"])
         with autocast(compute_dtype(cfg, image.device), image.device):
             outputs = model(image)
@@ -175,9 +207,9 @@ def make_train_step(cfg, prepare=None) -> Callable:
         else:
             loss = stacked_mse_loss(stacked, batch["target"], tw)
         _update(state, loss)
-        return state, _metrics(loss, final, batch["target"])
+        return _metrics(loss, final, batch["target"])
 
-    return step
+    return _compiled_train_step(body)
 
 
 def make_fpd_train_step(cfg, teacher, teacher_cfg=None,
@@ -190,7 +222,8 @@ def make_fpd_train_step(cfg, teacher, teacher_cfg=None,
     comes from ``teacher_cfg`` (the reference builds kd_pose_criterion
     from the teacher config, fpd_train.py:145-147); it defaults to
     ``cfg``.  Metrics: loss, pose_loss, kd_loss, acc, acc_cnt,
-    per_joint_acc.
+    per_joint_acc.  On the card the step, the teacher's forward included,
+    is one captured graph (``.eager``: the body).
     """
     tcfg = teacher_cfg or cfg
     use_tw = bool(cfg.LOSS.USE_TARGET_WEIGHT)
@@ -199,11 +232,10 @@ def make_fpd_train_step(cfg, teacher, teacher_cfg=None,
     prepare = prepare or _identity_prepare
     teacher_multi = is_multi_output(teacher)
 
-    def step(state: TrainState, batch):
+    def body(state: TrainState, batch):
         batch = prepare(batch)
-        model = state.model.train()
+        model = state.model
         image = _input(model, batch["image"])
-        teacher.eval()
         with torch.no_grad(), autocast(compute_dtype(tcfg, image.device),
                                        image.device):
             t_out = teacher(_input(teacher, batch["image"]))
@@ -219,9 +251,9 @@ def make_fpd_train_step(cfg, teacher, teacher_cfg=None,
         _update(state, loss)
         metrics = _metrics(loss, final, batch["target"])
         metrics.update(pose_loss=pose.detach(), kd_loss=kd.detach())
-        return state, metrics
+        return metrics
 
-    return step
+    return _compiled_train_step(body, teacher)
 
 
 def make_eval_step(cfg, flip_perm=None, prepare=None) -> Callable:
@@ -231,7 +263,9 @@ def make_eval_step(cfg, flip_perm=None, prepare=None) -> Callable:
     optionally "valid" (B,) with 0 on padded rows}.  outputs: {"preds"
     (B, J, 2) in source-image coordinates, "maxvals" (B, J), "loss" (),
     "hits"/"valids" (J,)}, device tensors.  Three decode-kernel launches
-    per batch: the decode and the two PCK argmaxes.
+    per batch: the decode and the two PCK argmaxes.  The model runs in
+    eval mode; on the card the step is a captured graph per model and
+    batch shape (``.eager``: the body).
     """
     use_tw = bool(cfg.LOSS.USE_TARGET_WEIGHT)
     use_ohkm = bool(cfg.LOSS.USE_OHKM)
@@ -242,13 +276,13 @@ def make_eval_step(cfg, flip_perm=None, prepare=None) -> Callable:
     if flip_test and flip_perm is None:
         raise ValueError("flip_perm is required when TEST.FLIP_TEST")
     prepare = prepare or _identity_prepare
+    perm = None if flip_perm is None else np.asarray(flip_perm)
 
     @torch.inference_mode()
-    def step(model, batch):
+    def body(model, batch):
         batch = prepare(batch)
         image = _input(model, batch["image"])
         multi = is_multi_output(model)
-        model.eval()
 
         def fwd(x):
             with autocast(compute_dtype(cfg, x.device), x.device):
@@ -257,8 +291,9 @@ def make_eval_step(cfg, flip_perm=None, prepare=None) -> Callable:
 
         output = fwd(image)
         if flip_test:
-            perm = torch.as_tensor(np.asarray(flip_perm), device=image.device)
-            flipped = flip_back_torch(fwd(image.flip(3)), perm)
+            flipped = flip_back_torch(fwd(image.flip(3)),
+                                      constant(perm, torch.int64,
+                                               image.device))
             if shift_heatmap:
                 # reference: col 0 kept, cols 1: get cols 0:-1
                 # (function.py:236-238)
@@ -281,4 +316,15 @@ def make_eval_step(cfg, flip_perm=None, prepare=None) -> Callable:
         return {"preds": preds, "maxvals": maxvals, "loss": loss,
                 "hits": hits, "valids": valids}
 
+    captured = CapturedStep(body, lambda model: storage_fingerprint((model,)))
+
+    def wrap(run):
+        def step(model, batch):
+            model.eval()
+            return run(model, batch)
+        return step
+
+    step = wrap(captured)
+    step.eager = wrap(body)
+    step.captured = captured
     return step

@@ -188,6 +188,26 @@ def load_model_weights(path: str) -> Dict[str, torch.Tensor]:
             for k, v in ckpt.items()}
 
 
+def _load_optimizer_state(optimizer, saved: dict) -> None:
+    """``optimizer.load_state_dict(saved)`` that keeps what belongs to
+    this device: each group's ``capturable`` flag and the kind of its rate
+    (a float32 tensor on the card's parameters' device, read by a captured
+    step; a float on the CPU), holding the saved value.  A checkpoint
+    written on the card resumes on the CPU and the other way round."""
+    groups = []
+    for live, group in zip(optimizer.param_groups, saved["param_groups"],
+                           strict=True):
+        group = dict(group)
+        if "capturable" in live:
+            group["capturable"] = live["capturable"]
+        rate = float(group["lr"])
+        group["lr"] = (torch.tensor(rate, dtype=torch.float32,
+                                    device=live["lr"].device)
+                       if isinstance(live["lr"], torch.Tensor) else rate)
+        groups.append(group)
+    optimizer.load_state_dict(dict(saved, param_groups=groups))
+
+
 def auto_resume(output_dir: str, state):
     """(state, begin_epoch, perf) from ``output_dir``'s rolling checkpoint,
     or (state, None, None) when there is none.  Restores the weights, the
@@ -200,6 +220,6 @@ def auto_resume(output_dir: str, state):
         return state, None, None
     payload = load_checkpoint_file(path)
     state.model.load_state_dict(payload["state_dict"])
-    state.optimizer.load_state_dict(payload["optimizer"])
+    _load_optimizer_state(state.optimizer, payload["optimizer"])
     state.step = int(payload.get("step", 0))
     return state, int(payload["epoch"]), float(payload["perf"])

@@ -33,6 +33,12 @@ def autocast(dtype: torch.dtype, device) -> torch.autocast:
     """The context a forward runs in.  For bfloat16 it gives ``fhpe_tpu``'s
     flow on float32 parameters: convs in bf16, BatchNorm normalizing in
     float32 and emitting bf16, ReLU, pooling and residual adds in bf16.
-    Other dtypes run as they are (autocast off)."""
-    return torch.autocast(torch.device(device).type, dtype=torch.bfloat16,
-                          enabled=dtype == torch.bfloat16)
+    Other dtypes run as they are (autocast off).  Inside a CUDA graph
+    capture autocast's cache of weight casts is off: PyTorch does not
+    support it under graphs (the casts are then made where they are
+    used, with the same values)."""
+    kind = torch.device(device).type
+    capturing = kind == "cuda" and torch.cuda.is_current_stream_capturing()
+    return torch.autocast(kind, dtype=torch.bfloat16,
+                          enabled=dtype == torch.bfloat16,
+                          cache_enabled=not capturing)

@@ -1,9 +1,11 @@
 """Device time read from ``torch.profiler`` traces, and what the card's
 toolchain says about the built kernels (CUDA only).
 
-The port's serve step is bound by the host's dispatch (``PERF.md``), so
+A step run op by op is bound by the host's dispatch (``PERF.md``), so
 CUDA events around a loop of calls time the host, not the device.  These
-helpers read the device's own activity from a profiler trace instead.
+helpers read the device's own activity from a profiler trace instead, and
+count the device ops the host launched (a captured graph's replay is one
+launch).
 """
 
 from __future__ import annotations
@@ -23,10 +25,31 @@ DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 TRACES = 3   # profiler traces device_ms takes before it gives up
 
 
+# runtime calls by which the host puts work on the device: kernels, whole
+# graphs, copies and fills
+LAUNCH_CALLS = re.compile(r"^cu(da)?(LaunchKernel|GraphLaunch|Memcpy|Memset)")
+
+
+def host_launches(events: List[dict]) -> int:
+    """How many device ops the host launched in a trace
+    (:func:`trace_events`): kernel and graph launches, copies and fills;
+    a graph launch counts once, whatever it runs."""
+    return sum(1 for e in events if e.get("cat") in ("cuda_runtime",
+                                                     "cuda_driver")
+               and LAUNCH_CALLS.match(e.get("name", "")))
+
+
 def device_events(fn: Callable[[], object], iters: int = 1) -> List[dict]:
     """Run ``fn`` ``iters`` times under the profiler; return the trace's
     device events (chrome-trace dicts: ``cat``, ``name``, ``ts``, ``dur``
     in microseconds)."""
+    return [e for e in trace_events(fn, iters)
+            if e.get("cat") in DEVICE_CATEGORIES]
+
+
+def trace_events(fn: Callable[[], object], iters: int = 1) -> List[dict]:
+    """Every event of a profiler trace of ``fn`` run ``iters`` times: the
+    host's (``cpu_op``, ``cuda_runtime``) and the device's."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -38,10 +61,9 @@ def device_events(fn: Callable[[], object], iters: int = 1) -> List[dict]:
     path = _TRACE_DIR / f"trace_{os.getpid()}.json"
     prof.export_chrome_trace(str(path))
     try:
-        events = json.loads(path.read_text())["traceEvents"]
+        return json.loads(path.read_text())["traceEvents"]
     finally:
         path.unlink()
-    return [e for e in events if e.get("cat") in DEVICE_CATEGORIES]
 
 
 def device_ms(fn: Callable[[], object], iters: int = 100) -> float:
