@@ -14,7 +14,8 @@ holds each captured step against its body:
 * the COCO path of the FPD student HRNet-W32 (256x192, 17 joints, bf16,
   batch 32, flip test on): ``Predictor.predict_crops`` ->
   ``cli.common.make_evaluate_fn`` (rescore, OKS-NMS on the card in one
-  launch of the segmented OKS-NMS kernel, results JSON, COCO AP);
+  launch of the segmented OKS-NMS kernel, results JSON, COCO AP); and
+  from full frames, ``Predictor.predict(image, boxes)``;
 * FPD training of the hourglass student by the teacher (bf16, batch 32,
   Adam): ``train.create_train_state`` -> ``make_batch_preprocessor`` ->
   ``make_fpd_train_step`` (the 3x3 filter gradients through the P4
@@ -23,7 +24,8 @@ holds each captured step against its body:
   the port's host data path: ``data.make_synthetic_mpii`` writes JPEGs
   through the image library, ``cli.common.build_loaders`` ->
   ``BatchLoader`` decodes, augments and warps them, ``device_batch``
-  uploads;
+  uploads; and with ``TPU.DEVICE_WARP``, letterbox canvases that the
+  step warps on the card;
 * FPD training of HRNet-W32 (``w32_fpd_student.yaml``) by W48
   (``w48_256x192_teacher.yaml``, eval mode) on COCO-shaped batches (bf16,
   batch 32, Adam lr 1e-3), the same entry points: every branch chain
@@ -199,7 +201,30 @@ Phases; any failure raises and exits non-zero:
     leaves every parameter; capturable against torch's default Adam over
     one eager step; images/s of both in turns; one profiled replay and
     one eager call (device ops the host launched, kernels, kernel ms,
-    idle share).
+    idle share);
+28. full-frame serving, ``Predictor.predict(image, boxes)``, W32 as in
+    phase 8 (bf16, batch 32, flip test): 8 synthetic 720x1280 frames of 12
+    person boxes each, some across the borders, then a frame with none,
+    (0, 17, 3); per chunk 1 decode and 52 P5e launches; each frame's
+    keypoints bit-equal to ``predict_crops`` of ``Predictor.crop``'s crops
+    and to a serial yardstick (a copy of the loop ``predict_crops`` ran
+    before its pipeline), and all the crops in one request (3 chunks)
+    bit-equal to the yardstick; then persons/s of ``predict``, the
+    pipelined ``predict_crops``, the yardstick and the step alone on
+    resident chunks, in turns, host ms per crop, and the idle share of one
+    profiled ``predict_crops`` and yardstick call;
+29. ``TPU.DEVICE_WARP``: phase 14b's hourglass pair fed letterbox canvases
+    (512x512) of 64 synthetic 480x640 MPII JPEGs, ``build_loaders`` ->
+    ``BatchLoader`` -> ``device_batch`` -> the captured FPD step (a graph
+    of its own for the canvas batch): 6 steps, then 6 on one batch, P4
+    59 and decode 2 per step, finite losses, falling on the one batch
+    (phase 12's check); one batch's crops warped on the card
+    against the CPU ``warp_affine`` of the same canvases
+    (``CANVAS_WARP_ATOL``) and against the host-warped crops of the same
+    augmentation draws (mean and median bars of
+    ``tests/test_device_warp.py``); then, in turns with the host-warp feed
+    of the same files: the loader alone, the step fed by it, its idle
+    share, the upload's host ms and MB per batch.
 
 Phases 15, 20, 4b and 16 run right after 11, in that order; W32 serving
 (phases 8 and 10) also counts 52 P5e launches per chunk.
@@ -357,6 +382,31 @@ CLI_COCO_VALID = 64
 GRAPH_CHECK_STEPS = 5
 GRAPH_SPREAD_FACTOR = 3.0
 GRAPH_TIMED_STEPS = 5
+
+# phase 28, full-frame serving: W32 (phase 8's config and weights) on
+# synthetic 720p frames of 12 person boxes each (one chunk of 32 per
+# frame, padded), then one frame without boxes; the timings also run 8
+# chunks of crops through predict_crops, the serial yardstick and the
+# step alone
+FRAME_HW = (720, 1280)
+FRAMES = 8
+BOXES_PER_FRAME = 12
+FRAME_TIMED_CHUNKS = 8
+
+# phase 29, the canvas-fed FPD step: phase 14b's hourglass pair over 64
+# synthetic MPII training JPEGs at 480x640, wider than the 512x512 canvas,
+# so the letterbox resize shrinks as it does for real MPII frames
+CANVAS_IMAGE_HW = (480, 640)
+CANVAS_SIZE = (512, 512)
+CANVAS_EPOCHS = 3          # 6 loader-fed steps on the main path
+CANVAS_REPEATS = 6         # then steps on one batch: the loss must fall
+# the crops the card warps from one batch's canvases against the CPU's
+# warp_affine of the same canvases: float32, the same operations in the
+# same order (a floor that differed would move a pixel by a whole tap)
+CANVAS_WARP_ATOL = 1e-3
+# against the host-warped crops of the same augmentation draws: one more
+# bilinear resample (the bars of tests/test_device_warp.py:56-58)
+HOST_WARP_MEAN, HOST_WARP_MEDIAN = 6.0, 3.0
 
 # Card peaks for the bound (NVIDIA H100 SXM data sheet, dense).
 HBM_BYTES_PER_S = 3.35e12
@@ -1923,6 +1973,59 @@ def loader_cfgs(root: Path):
     return scfg, tcfg
 
 
+def feed_rates(feeds: dict, turns, n_img: int, device) -> dict:
+    """{name: [images/s of each turn]} of ``feeds`` (each a no-argument
+    run of ``n_img`` images) run in the order ``turns``, timed by the host
+    clock ended by a synchronise."""
+    rates = {name: [] for name in feeds}
+    for name in turns:
+        sync(device)
+        t0 = time.perf_counter()
+        feeds[name]()
+        sync(device)
+        rates[name].append(n_img / (time.perf_counter() - t0))
+    return rates
+
+
+def idle_shares(feeds: dict, device) -> dict:
+    """{name: the idle share of one profiled run of the feed, as text}:
+    1 - device busy time (the union of the trace's device events) / the
+    run's wall time; empty off the card."""
+    import torch
+    from fhpe_tpu_torch.utils.profiling import busy_ms, device_events
+    idle = {}
+    if device.type != "cuda":
+        return idle
+    for name, fn in feeds.items():
+        walls = []
+
+        def timed(fn=fn, walls=walls):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+
+        busy = busy_ms(device_events(timed))
+        idle[name] = f"{1 - busy / walls[0]:.3f}"
+    return idle
+
+
+def upload_ms(cfg, host: dict, device, reps: int = 5):
+    """``device_batch``'s upload of the host batch ``host`` (pageable
+    memory, synchronous): (median host ms of ``reps``, MB, the device
+    batch)."""
+    from fhpe_tpu_torch.cli.common import device_batch
+    walls = []
+    for _ in range(reps):
+        sync(device)
+        t0 = time.perf_counter()
+        dev = device_batch(cfg, host, device)
+        sync(device)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    mb = sum(v.numel() * v.element_size() for v in dev.values()) / 1e6
+    return sorted(walls)[reps // 2], mb, dev
+
+
 def phase_loader(state, device, totals, label, root: Path) -> None:
     """The FPD train step and MPII validation fed by the port's own host
     data path: ``write_mpii_sets`` writes JPEGs through the image library
@@ -1938,7 +2041,6 @@ def phase_loader(state, device, totals, label, root: Path) -> None:
     from fhpe_tpu_torch.tools import jpeg_route
     from fhpe_tpu_torch.train import (make_batch_preprocessor,
                                       make_fpd_train_step)
-    from fhpe_tpu_torch.utils.profiling import busy_ms, device_events
 
     scfg, tcfg = loader_cfgs(root)
     w, h = (int(v) for v in scfg.MODEL.IMAGE_SIZE)
@@ -2022,37 +2124,14 @@ def phase_loader(state, device, totals, label, root: Path) -> None:
 
     n_img = LOADER_TIMED_EPOCHS * len(train_loader) * TRAIN_BATCH
     feeds = {"loader": fed_by_loader, "resident": fed_resident}
-    rates = {name: [] for name in feeds}
-    for name in ("loader", "resident", "resident", "loader"):
-        sync(device)
-        t0 = time.perf_counter()
-        feeds[name]()
-        sync(device)
-        rates[name].append(n_img / (time.perf_counter() - t0))
-    idle = {}
-    if device.type == "cuda":
-        for name, fn in feeds.items():
-            walls = []
-
-            def timed(fn=fn, walls=walls):
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                walls.append((time.perf_counter() - t0) * 1e3)
-
-            busy = busy_ms(device_events(timed))
-            idle[name] = f"{1 - busy / walls[0]:.3f}"
+    rates = feed_rates(feeds, ("loader", "resident", "resident", "loader"),
+                       n_img, device)
+    idle = idle_shares(feeds, device)
     # the upload device_batch makes (pageable host memory, synchronous),
     # and the captured step's copy of it into its static inputs (device to
     # device), by CUDA events
     host = next(iter(train_loader))
-    uploads = []
-    for _ in range(5):
-        sync(device)
-        t0 = time.perf_counter()
-        dev = device_batch(scfg, host, device)
-        sync(device)
-        uploads.append((time.perf_counter() - t0) * 1e3)
+    up_ms, up_mb, dev = upload_ms(scfg, host, device)
     copy_in = "not measured"
     if device.type == "cuda":
         static = {k: torch.empty_like(v) for k, v in dev.items()}
@@ -2065,8 +2144,7 @@ def phase_loader(state, device, totals, label, root: Path) -> None:
         torch.cuda.synchronize()
         copy_in = f"{start.elapsed_time(end) / 20:.3f} ms"
     log("loader", f"one batch's upload (device_batch, {len(dev)} tensors, "
-        f"{sum(v.numel() * v.element_size() for v in dev.values()) / 1e6:.2f}"
-        f" MB) {sorted(uploads)[2]:.3f} ms host (median of 5), its copy "
+        f"{up_mb:.2f} MB) {up_ms:.3f} ms host (median of 5), its copy "
         f"into the graph's static inputs {copy_in} on the device")
     log("loader", "warm captured FPD step (bf16, batch "
         f"{TRAIN_BATCH}, {n_img} images per run, in turns) fed by the "
@@ -2996,6 +3074,366 @@ def phase_graphs(device, totals, label) -> None:
     torch.cuda.empty_cache()
 
 
+# -- phase 28: full-frame serving --------------------------------------------
+
+def make_frames(n: int, boxes_per_frame: int, seed: int):
+    """``n`` noise frames of ``FRAME_HW`` and ``boxes_per_frame`` person
+    boxes (x, y, w, h) each, some across the frame's borders."""
+    rng = np.random.RandomState(seed)
+    h, w = FRAME_HW
+    frames, boxes = [], []
+    for _ in range(n):
+        frames.append(rng.randint(0, 256, size=(h, w, 3)).astype(np.uint8))
+        bw = rng.uniform(40, 400, boxes_per_frame)
+        bh = rng.uniform(80, 600, boxes_per_frame)
+        x = rng.uniform(-0.2 * bw, w - 0.8 * bw)
+        y = rng.uniform(-0.2 * bh, h - 0.8 * bh)
+        boxes.append([tuple(float(v) for v in b)
+                      for b in zip(x, y, bw, bh)])
+    return frames, boxes
+
+
+def serial_predict_crops(p, crops, centers, scales):
+    """The loop ``Predictor.predict_crops`` ran before its pipeline, kept
+    as a yardstick: each chunk padded in fresh pageable host memory,
+    uploaded synchronously, stepped; the results read back once at the
+    end."""
+    import torch
+    from fhpe_tpu_torch.ops.decode import make_inverse_transforms
+    w, h = p.image_size
+    n = len(crops)
+    inv = make_inverse_transforms(np.asarray(centers), np.asarray(scales),
+                                  p.heatmap_size)
+    b = p.batch_size
+    preds, vals = [], []
+    for lo in range(0, n, b):
+        hi = min(lo + b, n)
+        img = torch.zeros((b, h, w, 3), dtype=torch.uint8)
+        itr = torch.zeros((b, 2, 3), dtype=torch.float32)
+        img[:hi - lo] = torch.from_numpy(crops[lo:hi])
+        itr[:hi - lo] = torch.from_numpy(inv[lo:hi])
+        out = p.step(p.model, {"image": img.to(p.device),
+                               "inv_trans": itr.to(p.device)})
+        preds.append(out["preds"][:hi - lo])
+        vals.append(out["maxvals"][:hi - lo])
+    return torch.cat(preds).cpu().numpy(), torch.cat(vals).cpu().numpy()
+
+
+def rates_in_turns(fns: dict, items: dict, device, rounds: int = 3) -> dict:
+    """{name: items/s, median of ``rounds``} of ``fns``, each round in
+    turns (the order of ``fns``, then reversed, ...), host clock ended by
+    a synchronise."""
+    names = list(fns)
+    walls = {k: [] for k in names}
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            sync(device)
+            t0 = time.perf_counter()
+            fns[name]()
+            sync(device)
+            walls[name].append(time.perf_counter() - t0)
+    return {k: items[k] / sorted(v)[len(v) // 2] for k, v in walls.items()}
+
+
+def phase_frame_serving(device, totals, label) -> None:
+    """Phase 28: ``Predictor.predict(image, boxes)`` on full frames, W32
+    at full width (bf16, batch 32, flip test): the crops cut on the
+    prefetch thread, the chunks double-buffered through the captured
+    serve step."""
+    from fhpe_tpu_torch.serve import Predictor
+    from fhpe_tpu_torch.serve.predictor import xywh_to_center_scale
+
+    w32 = serve_cfg(W32_YAML)
+    p = Predictor(w32, he_model(w32, 200), device=device)
+    p.warmup()
+    num_joints = int(w32.MODEL.NUM_JOINTS)
+    frames, boxes = make_frames(FRAMES, BOXES_PER_FRAME, seed=280)
+    frames.append(np.zeros(FRAME_HW + (3,), np.uint8))
+    boxes.append([])
+    outs, counts = main_path_run(totals, lambda: [
+        p.predict(f, b) for f, b in zip(frames, boxes)])
+    chunks = sum(-(-len(b) // p.batch_size) for b in boxes)
+    want = expected(device, decode_heatmaps=chunks,
+                    branch_chain_eval=chains_per_chunk(p) * chunks)
+    if counts != want:
+        raise AssertionError(f"frames: launches {counts} for {chunks} "
+                             f"chunks, want {want}")
+    for out, b in zip(outs, boxes):
+        if out.shape != (len(b), num_joints, 3) or out.dtype != np.float32 \
+                or not np.isfinite(out).all():
+            raise AssertionError(f"frames: output {out.dtype} {out.shape} "
+                                 f"for {len(b)} boxes")
+
+    # against cropping first (Predictor.crop, then predict_crops) and the
+    # serial yardstick on the same crops: bit-equal, frame by frame
+    cropped = []
+    for f, b, out in zip(frames, boxes, outs):
+        cs = [xywh_to_center_scale(x, p.aspect_ratio) for x in b]
+        centers = np.array([c for c, _ in cs], np.float32).reshape(-1, 2)
+        scales = np.array([s for _, s in cs], np.float32).reshape(-1, 2)
+        crops = np.stack([p.crop(f, c, s) for c, s in cs]) if cs else \
+            np.zeros((0, p.image_size[1], p.image_size[0], 3), np.uint8)
+        cropped.append((crops, centers, scales))
+        preds, vals = p.predict_crops(crops, centers, scales)
+        if not len(b):
+            continue
+        s_preds, s_vals = serial_predict_crops(p, crops, centers, scales)
+        if not (np.array_equal(out[..., :2], preds)
+                and np.array_equal(out[..., 2], vals)
+                and np.array_equal(preds, s_preds)
+                and np.array_equal(vals, s_vals)):
+            raise AssertionError("frames: predict != predict_crops of "
+                                 "crop's crops != the serial yardstick")
+    # several chunks in one request, results in flight: all the frames'
+    # crops with max_in_flight 2 (3 chunks in 3 slots) and 1 (2 slots, one
+    # reused), and the timed request below (8 chunks in 3 slots, reused)
+    crops, centers, scales = (np.concatenate(a) for a in zip(*cropped))
+    t_crops, t_centers, t_scales = make_requests(
+        w32, FRAME_TIMED_CHUNKS * p.batch_size, 281)
+    runs = []
+    for request, in_flight in (((crops, centers, scales), 2),
+                               ((crops, centers, scales), 1),
+                               ((t_crops, t_centers, t_scales), 2)):
+        p.max_in_flight = in_flight
+        try:
+            got = p.predict_crops(*request)
+        finally:
+            p.max_in_flight = 2
+        ref = serial_predict_crops(p, *request)
+        if not all(np.array_equal(a, r) for a, r in zip(got, ref)):
+            raise AssertionError(
+                f"frames: pipelined predict_crops != the serial yardstick "
+                f"over {len(request[0])} crops, max_in_flight {in_flight}")
+        chunks_in = -(-len(request[0]) // p.batch_size)
+        runs.append(f"{len(request[0])} crops in {chunks_in} chunks through "
+                    f"{min(in_flight + 1, chunks_in)} slots")
+    n_people = sum(len(b) for b in boxes)
+    log("frames", f"predict on {len(frames)} {FRAME_HW[1]}x{FRAME_HW[0]} "
+        f"frames ({n_people} boxes, one frame empty -> (0, {num_joints}, "
+        f"3)): {chunks} chunks, decode launches "
+        f"{counts['decode_heatmaps']}, P5e {counts['branch_chain_eval']} "
+        f"({chains_per_chunk(p)} per chunk); bit-equal to predict_crops of "
+        f"crop's crops and to the serial yardstick frame by frame; the "
+        f"pipelined predict_crops bit-equal to the serial yardstick over "
+        + "; ".join(runs))
+
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for f, b in zip(frames, boxes):
+            for x in b:
+                p.crop(f, *xywh_to_center_scale(x, p.aspect_ratio))
+        walls.append((time.perf_counter() - t0) * 1e3 / n_people)
+    import torch
+    from fhpe_tpu_torch.ops.decode import make_inverse_transforms
+    inv = torch.from_numpy(make_inverse_transforms(t_centers, t_scales,
+                                                   p.heatmap_size))
+    bs = p.batch_size
+    resident = [{"image": torch.from_numpy(t_crops[i:i + bs]).to(device),
+                 "inv_trans": inv[i:i + bs].to(device)}
+                for i in range(0, len(t_crops), bs)]
+    n_crops = len(t_crops)
+    fns = {"predict": lambda: [p.predict(f, x)
+                               for f, x in zip(frames, boxes)],
+           "predict_crops": lambda: p.predict_crops(t_crops, t_centers,
+                                                    t_scales),
+           "serial": lambda: serial_predict_crops(p, t_crops, t_centers,
+                                                  t_scales),
+           "step": lambda: [p.step(p.model, r) for r in resident]}
+    rates = rates_in_turns(fns, {"predict": n_people,
+                                 "predict_crops": n_crops, "serial": n_crops,
+                                 "step": n_crops}, device)
+    idle = {}
+    if device.type == "cuda":
+        for name in ("predict_crops", "serial"):
+            idle[name] = f"{one_call_profile(fns[name])['idle']:.3f}"
+    log("frames", f"persons/s (medians of 3 in turns; "
+        f"{w32.TPU.COMPUTE_DTYPE}, batch {bs}, flip test): predict "
+        f"{rates['predict']:.1f} ({n_people} persons in {len(frames)} "
+        f"frame requests), pipelined predict_crops "
+        f"{rates['predict_crops']:.1f} ({n_crops} crops), serial yardstick "
+        f"{rates['serial']:.1f}, the step alone on resident chunks "
+        f"{rates['step']:.1f}; host crop {sorted(walls)[1]:.3f} ms per "
+        f"person; idle share of one profiled call: predict_crops "
+        f"{idle.get('predict_crops', 'not measured')}, serial "
+        f"{idle.get('serial', 'not measured')}; {label}")
+    del p, resident
+
+
+# -- phase 29: the canvas-fed FPD step (TPU.DEVICE_WARP) ----------------------
+
+def canvas_cfgs(root: Path, device_warp: bool):
+    """``loader_cfgs`` with ``TPU.DEVICE_WARP`` set and the canvas at
+    ``CANVAS_SIZE``."""
+    scfg, tcfg = loader_cfgs(root)
+    scfg.defrost()
+    scfg.TPU.DEVICE_WARP = device_warp
+    scfg.TPU.CANVAS_SIZE = list(CANVAS_SIZE)
+    scfg.freeze()
+    return scfg, tcfg
+
+
+def phase_canvas_step(device, totals, label, root: Path) -> None:
+    """Phase 29: the captured hourglass FPD step (phase 14b's pair, bf16,
+    batch 32) fed letterbox canvases: ``build_loaders`` -> ``BatchLoader``
+    (decode, augment draws, the resize into the canvas, the matrix) ->
+    ``device_batch`` -> the step, whose preprocessor warps the crops on
+    the card; then the crops against the CPU's warp and the host warp,
+    and the feed against the host-warp feed of the same files."""
+    import os
+
+    import torch
+    from fhpe_tpu_torch.cli.common import build_loaders, device_batch
+    from fhpe_tpu_torch.ops.preprocess import warp_affine
+    from fhpe_tpu_torch.train import (create_train_state,
+                                      make_batch_preprocessor,
+                                      make_fpd_train_step)
+
+    write_mpii_sets(root, CANVAS_IMAGE_HW)
+    scfg, tcfg = canvas_cfgs(root, True)
+    cfgs = {"canvas": scfg, "host": canvas_cfgs(root, False)[0]}
+
+    def train_loader(cfg):
+        train, val, _ = build_loaders(cfg)
+        val.close()
+        return train
+
+    prepare = make_batch_preprocessor(scfg)
+    tap = {}
+
+    def tapped(batch):
+        """The preprocessor; a canvas batch's prepared image is also
+        copied into a buffer that the captured graph writes on replay."""
+        out = prepare(batch)
+        if "canvas" in batch:
+            if "image" not in tap:
+                tap["image"] = torch.empty_like(out["image"])
+            tap["image"].copy_(out["image"])
+        return out
+
+    teacher = seeded_model(tcfg, 100).to(device)
+    state = create_train_state(scfg, seeded_model(scfg, 0), device=device)
+    step = make_fpd_train_step(scfg, teacher, tcfg, prepare=tapped)
+    loaders = {k: train_loader(c) for k, c in cfgs.items()}
+
+    def train():
+        fed = [step(state, device_batch(scfg, batch, device))[1]
+               for _ in range(CANVAS_EPOCHS) for batch in loaders["canvas"]]
+        one = device_batch(scfg, next(iter(loaders["canvas"])), device)
+        return fed, [step(state, one)[1] for _ in range(CANVAS_REPEATS)]
+
+    (fed, repeated), counts = main_path_run(totals, train)
+    steps = len(fed) + len(repeated)
+    want = expected(device, conv3x3_wgrad=P4_PER_STEP * steps,
+                    decode_heatmaps=K1_PER_TRAIN_STEP * steps)
+    if len(fed) < 6 or counts != want:
+        raise AssertionError(f"canvas: {steps} steps, launches {counts}, "
+                             f"want {want}")
+    losses = [check_finite("canvas", m)["loss"] for m in fed + repeated]
+    if not losses[-1] < losses[len(fed)]:
+        raise AssertionError(f"canvas: the loss did not fall on one "
+                             f"batch: {losses[len(fed):]}")
+    log("canvas", f"{steps} captured FPD steps on canvas batches "
+        f"({CANVAS_SIZE[0]}x{CANVAS_SIZE[1]} canvases of "
+        f"{CANVAS_IMAGE_HW[1]}x{CANVAS_IMAGE_HW[0]} JPEGs), {len(fed)} fed "
+        f"by the loader, loss " + ", ".join(f"{v:.6f}" for v in
+                                           losses[:len(fed)])
+        + f", then {len(repeated)} on one batch: {losses[len(fed)]:.6f} -> "
+        f"{losses[-1]:.6f}; launches per step: P4 "
+        f"{counts['conv3x3_wgrad'] / steps:g}, decode "
+        f"{counts['decode_heatmaps'] / steps:g}")
+
+    # one batch's crops: the card's warp against the CPU's on the same
+    # canvases, and against the host warp of the same augmentation draws
+    # (fresh loaders of one seed draw the same samples)
+    fresh = {k: train_loader(c) for k, c in cfgs.items()}
+    cb, hb = (next(iter(fresh[k])) for k in ("canvas", "host"))
+    for loader in fresh.values():
+        loader.close()
+    if not (np.array_equal(cb["flipped"], hb["flipped"])
+            and np.array_equal(cb["joints"], hb["joints"])):
+        raise AssertionError("canvas: the two feeds drew different samples")
+    # the canvas graph's prepared image, from one replay on this batch,
+    # against the preprocessor run eagerly on the card: bit-equal
+    captures = step.captured.captures
+    dev_batch = device_batch(scfg, cb, device)
+    step(state, dev_batch)
+    graph_image = tap["image"].clone()
+    eager_image = prepare(dev_batch)["image"]
+    if step.captured.captures != captures:
+        raise AssertionError("canvas: a canvas batch was captured again")
+    if not torch.equal(graph_image, eager_image):
+        raise AssertionError(
+            f"canvas: the captured step's prepared image != the eager "
+            f"preprocessor's (max |diff| "
+            f"{float((graph_image - eager_image).abs().max())})")
+    size = tuple(int(v) for v in scfg.MODEL.IMAGE_SIZE)
+    canvas, inv = (torch.from_numpy(cb[k]) for k in ("canvas", "warp_inv"))
+    card = warp_affine(canvas.to(device), inv.to(device), size).cpu()
+    cpu = warp_affine(canvas, inv, size)
+    d_cpu = (card - cpu).abs()
+    d_host = (card - torch.from_numpy(hb["image"]).float()).abs()
+    if d_cpu.max() > CANVAS_WARP_ATOL or not (
+            d_host.mean() < HOST_WARP_MEAN
+            and d_host.median() < HOST_WARP_MEDIAN):
+        raise AssertionError(
+            f"canvas: crops off: card vs CPU max {float(d_cpu.max())}, vs "
+            f"host warp mean {float(d_host.mean())}, median "
+            f"{float(d_host.median())}")
+    log("canvas", f"one batch's {len(card)} crops warped on the card from "
+        f"its canvases: against the CPU warp_affine max |diff| "
+        f"{float(d_cpu.max()):.3g} ({int((d_cpu > 0).sum())} of "
+        f"{d_cpu.numel()} values differ; bar {CANVAS_WARP_ATOL}); against "
+        f"the host warp of the same draws mean |diff| "
+        f"{float(d_host.mean()):.3f}, median {float(d_host.median()):.3f} "
+        f"(bars {HOST_WARP_MEAN}, {HOST_WARP_MEDIAN}); "
+        f"{int(cb['flipped'].sum())} flipped; the canvas graph's prepared "
+        f"image from one replay bit-equal to the eager preprocessor's")
+
+    # the canvas feed against the host-warp feed of the same files: the
+    # loader alone, the step fed by it, idle share, upload
+    def alone(name):
+        return lambda: sum(len(b["valid"]) for _ in range(
+            LOADER_TIMED_EPOCHS) for b in loaders[name])
+
+    def fed(name):
+        cfg = cfgs[name]
+
+        def run():
+            for _ in range(LOADER_TIMED_EPOCHS):
+                for batch in loaders[name]:
+                    step(state, device_batch(cfg, batch, device))
+        return run
+
+    n_img = LOADER_TIMED_EPOCHS * len(loaders["canvas"]) * TRAIN_BATCH
+    turns = ("canvas", "host", "host", "canvas")
+    # the host batches' own graph (a new input signature), captured first
+    step(state, device_batch(cfgs["host"], next(iter(loaders["host"])),
+                             device))
+    alone_rates = feed_rates({k: alone(k) for k in cfgs}, turns, n_img,
+                             device)
+    feeds = {k: fed(k) for k in cfgs}
+    fed_rates = feed_rates(feeds, turns, n_img, device)
+    idle = idle_shares(feeds, device)
+    uploads = {k: upload_ms(cfgs[k], next(iter(loaders[k])), device)[:2]
+               for k in cfgs}
+    what = {"canvas": "letterbox canvases, the warp in the step",
+            "host": "crops warped on the host"}
+    for k in cfgs:
+        log("canvas", f"{k} feed ({what[k]}): the loader alone "
+            + ", ".join(f"{r:.1f}" for r in alone_rates[k])
+            + " images/s, the captured FPD step fed by it "
+            + ", ".join(f"{r:.1f}" for r in fed_rates[k])
+            + f" images/s (in turns, {n_img} images per run; idle share "
+            f"{idle.get(k, 'not measured')}); upload "
+            f"{uploads[k][0]:.3f} ms host for {uploads[k][1]:.2f} MB per "
+            f"batch (median of 5); {max(2, int(cfgs[k].WORKERS))} loader "
+            f"threads, nproc {os.cpu_count()}; {label}")
+    for loader in loaders.values():
+        loader.close()
+    del state, teacher, step
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3087,6 +3525,9 @@ def main() -> int:
         phase_fpd_cli(device, totals, label, mpii)
     phase_rn50_cli(device, totals, label)
     phase_graphs(device, totals, label)
+    phase_frame_serving(device, totals, label)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        phase_canvas_step(device, totals, label, Path(tmp) / "mpii")
 
     for name in KERNELS:
         if totals[name] <= 0:

@@ -79,7 +79,7 @@ def resolve_device(name: str) -> torch.device:
 def check_supported(cfg) -> None:
     """Refuse what the port does not do yet, rather than skip it in
     silence.  ``TPU.NUM_DEVICES > 1`` is refused by
-    ``create_train_state``, ``TPU.DEVICE_WARP`` by the batch preprocessor."""
+    ``create_train_state``."""
     if cfg.DEBUG.DEBUG:
         raise NotImplementedError(
             "DEBUG.DEBUG (debug image dumps) is not ported yet (ROADMAP.md "

@@ -8,9 +8,13 @@ copy equal to ``fhpe_tpu.config`` on every ``experiments/**/*.yaml``.
 
 Same semantics as the original: attribute access, defaults < YAML file <
 dotted ``KEY VALUE`` overrides, yacs-style literal decoding of strings,
-freezing after the merge.  ``TPU.*`` keys keep their names; the port
-reads ``TPU.COMPUTE_DTYPE``, ``TPU.DEAD_BIAS_SKIP`` and
-``TPU.NUM_DEVICES``, and accepts the rest for YAML compatibility.
+freezing after the merge, and ``load_config``'s two checks (a warning
+for the deprecated ``TPU.FUSED_EVAL``, a ``ValueError`` for
+``TPU.DEVICE_WARP`` without ``TPU.DEVICE_PREPROCESS``).  ``TPU.*`` keys
+keep their names; the port reads ``TPU.COMPUTE_DTYPE``,
+``TPU.DEAD_BIAS_SKIP``, ``TPU.NUM_DEVICES``, ``TPU.DEVICE_PREPROCESS``,
+``TPU.DEVICE_WARP`` and ``TPU.CANVAS_SIZE``, and accepts the rest for
+YAML compatibility.
 """
 
 from __future__ import annotations
@@ -359,6 +363,20 @@ def load_config(cfg_file: str, opts: list | None = None,
     cfg.MODEL.PRETRAINED = os.path.join(cfg.DATA_DIR, cfg.MODEL.PRETRAINED)
     if cfg.TEST.MODEL_FILE:
         cfg.TEST.MODEL_FILE = os.path.join(cfg.DATA_DIR, cfg.TEST.MODEL_FILE)
+
+    if cfg.TPU.FUSED_EVAL:
+        import warnings
+        warnings.warn("TPU.FUSED_EVAL is deprecated and ignored (removed "
+                      "round 4: measured 14x slower than the jitted eval "
+                      "step)", stacklevel=2)
+
+    # fhpe_tpu's two checks, with its texts.  DEVICE_WARP ships canvases
+    # + affines and relies on the on-device preprocessor to warp,
+    # normalize and stamp targets; without it the step has neither an
+    # image nor a target (a bare KeyError inside the step otherwise).
+    if cfg.TPU.get("DEVICE_WARP", False) and not cfg.TPU.DEVICE_PREPROCESS:
+        raise ValueError(
+            "TPU.DEVICE_WARP True requires TPU.DEVICE_PREPROCESS True")
 
     cfg.freeze()
     return cfg

@@ -15,8 +15,11 @@ whatever those flags say, so neither selects anything here: the warp
 equals cv2's up to +-1 at exact .5 ties (``tests/test_native_image.py``),
 and the decode is cv2's libjpeg on the library's ``libjpeg`` route (on
 its ``nvjpeg`` route it is not bit-equal; ``ops/native_image.py``).
-A file that is not a JPEG raises.  ``TPU.DEVICE_WARP`` (the letterbox
-canvas warped on the device) is not ported and raises.
+A file that is not a JPEG raises.  With ``TPU.DEVICE_WARP`` a training
+sample is instead a letterbox canvas (``TPU.CANVAS_SIZE``, the image
+resized into it by the library's ``resize``, bit-equal to cv2's) and the
+output->canvas affine, with the flip folded into it; the step crops on
+the device.  Evaluation keeps the host warp.
 
 Split of responsibilities, as in ``fhpe_tpu``:
 * host (this module): decode + augment-params + single uint8 warp — the
@@ -115,11 +118,6 @@ class PoseDataSource:
 
     def __init__(self, cfg, db: List[dict], is_train: bool, flip_pairs,
                  upper_body_ids, joints_weight=None, seed: int = 0):
-        if cfg.TPU.get("DEVICE_WARP", False):
-            raise NotImplementedError(
-                "TPU.DEVICE_WARP (warping crops from the letterbox canvas on "
-                "the device) is not ported yet (ROADMAP.md queue A, the "
-                "device warp)")
         self.cfg = cfg
         self.db = db
         self.is_train = is_train
@@ -139,6 +137,8 @@ class PoseDataSource:
         self.prob_half_body = cfg.DATASET.PROB_HALF_BODY
         self.color_rgb = cfg.DATASET.COLOR_RGB
         self.use_diff_weight = cfg.LOSS.USE_DIFFERENT_JOINTS_WEIGHT
+        self.device_warp = bool(cfg.TPU.get("DEVICE_WARP", False))
+        self.canvas_size = tuple(cfg.TPU.get("CANVAS_SIZE", [512, 512]))
         self.rng = np.random.RandomState(seed)
         self.pyrng = pyrandom.Random(seed)
         # Decoded-image RAM cache (TPU.DECODE_CACHE_MB): from epoch 2 the
@@ -218,6 +218,32 @@ class PoseDataSource:
         flipped = bool(self.flip and self.pyrng.random() <= 0.5)
         return {"c": c, "s": s, "r": r, "flipped": flipped}
 
+    def _canvas_field(self, img, c, s, r, flipped) -> Dict:
+        """``TPU.DEVICE_WARP``: the image letterboxed into a fixed
+        ``CANVAS_SIZE`` canvas (resized to fit, top-left, zero padding) and
+        the composed output->canvas affine; the crop itself runs on the
+        device (``ops/preprocess.py::warp_affine`` in the step).  A flip
+        folds into the matrix: the pixels are never flipped on the host."""
+        wc, hc = self.canvas_size
+        h_img, w_img = img.shape[:2]
+        fit = min(wc / w_img, hc / h_img)
+        rw, rh = int(round(w_img * fit)), int(round(h_img * fit))
+        canvas = np.zeros((hc, wc, 3), np.uint8)
+        canvas[:rh, :rw] = native_image.resize(img, (rw, rh))
+        inv = get_affine_transform(c, s, r, self.image_size, inv=True)
+        if flipped:
+            inv = compose_mirror(inv, w_img)
+        # source -> canvas coords with the resize's pixel-center
+        # convention: canvas_x = (src_x + 0.5) * fit_x - 0.5, i.e. scale
+        # each row by the per-axis fit AND shift the translation column
+        # by 0.5*fit - 0.5 (a pure row scale would bias every crop
+        # ~0.5*(1-fit) px toward the top-left).
+        fx, fy = rw / w_img, rh / h_img
+        warp_inv = inv * np.array([[fx], [fy]])
+        warp_inv[0, 2] += 0.5 * fx - 0.5
+        warp_inv[1, 2] += 0.5 * fy - 0.5
+        return {"canvas": canvas, "warp_inv": warp_inv.astype(np.float32)}
+
     def get_sample(self, idx: int, host_targets: bool = False,
                    params: Optional[Dict] = None) -> Dict:
         if not self.is_train and self._cache_budget > 0:
@@ -251,16 +277,23 @@ class PoseDataSource:
             flipped = False
 
         trans = get_affine_transform(c, s, r, self.image_size)
-        warped = native_image.warp_affine(
-            img, trans, (int(self.image_size[0]), int(self.image_size[1])),
-            flip_src=flipped)
+
+        # the device warp applies to training only; evaluation keeps the
+        # host warp (decode and metrics comparable with the reference)
+        if self.device_warp and self.is_train:
+            image_field = self._canvas_field(img, c, s, r, flipped)
+        else:
+            image_field = {"image": native_image.warp_affine(
+                img, trans,
+                (int(self.image_size[0]), int(self.image_size[1])),
+                flip_src=flipped)}  # uint8, already contiguous
 
         for i in range(self.num_joints):
             if joints_vis[i, 0] > 0.0:
                 joints[i, 0:2] = affine_transform(joints[i, 0:2], trans)
 
         sample = {
-            "image": warped,  # uint8, already contiguous
+            **image_field,
             "joints": joints[:, :2].astype(np.float32),
             "joints_vis": joints_vis[:, 0].astype(np.float32),
             "center": c.astype(np.float32),

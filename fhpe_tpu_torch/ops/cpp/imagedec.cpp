@@ -38,6 +38,7 @@
 #include <cfenv>
 #include <cmath>
 #include <limits>
+#include <utility>
 #include <vector>
 
 #ifndef FHPE_NO_LIBJPEG
@@ -274,6 +275,95 @@ void fhpe_warp_affine_u8(const uint8_t* src, int sh, int sw, int ch,
                     d[c] = static_cast<uint8_t>(r < 0 ? 0 : (r > 255 ? 255 : r));
                 }
             }
+        }
+    }
+}
+
+
+// cv2.resize(src, (dw, dh), interpolation=INTER_LINEAR) on uint8, ch in
+// 1..4: OpenCV's fixed-point linear resize (imgproc/src/resize.cpp), the
+// tables of hal::resize and the arithmetic of its uchar specialisations.
+//   * equal sizes: a copy (cv::resize's own shortcut);
+//   * both scales exactly 2 (an exact halving): INTER_AREA's fast path,
+//     (a + b + c + d + 2) >> 2 over each 2x2 block;
+//   * otherwise the source coordinate (d + 0.5) * scale - 0.5 in double,
+//     rounded to float, floored; its fraction as 11-bit coefficients
+//     (1 - f and f times 2048, each rounded half to even); x clamped to
+//     the image with a zero fraction (one tap at the right edge), y's rows
+//     clamped but its fraction kept; the horizontal pass in int, the
+//     vertical one as ((b0 * (S0 >> 4)) >> 16) + ((b1 * (S1 >> 4)) >> 16)
+//     then + 2 >> 2, i.e. the 22-bit shift of the two passes done in
+//     16-bit halves as OpenCV's VResizeLinear<uchar, int, short> does.
+void fhpe_resize_linear_u8(const uint8_t* src, int sh, int sw, int ch,
+                           uint8_t* dst, int dh, int dw) {
+    const int64_t srow = static_cast<int64_t>(sw) * ch;
+    const int64_t drow = static_cast<int64_t>(dw) * ch;
+    if (sh == dh && sw == dw) {
+        std::memcpy(dst, src, static_cast<size_t>(sh) * srow);
+        return;
+    }
+    const double scale_x = 1.0 / (static_cast<double>(dw) / sw);
+    const double scale_y = 1.0 / (static_cast<double>(dh) / sh);
+    const double eps = std::numeric_limits<double>::epsilon();
+    if (std::fabs(scale_x - 2.0) < eps && std::fabs(scale_y - 2.0) < eps) {
+        for (int y = 0; y < dh; y++) {
+            const uint8_t* s0 = src + 2 * y * srow;
+            const uint8_t* s1 = s0 + srow;
+            uint8_t* d = dst + y * drow;
+            for (int x = 0; x < dw; x++)
+                for (int c = 0; c < ch; c++) {
+                    const int i = 2 * x * ch + c;
+                    d[x * ch + c] = static_cast<uint8_t>(
+                        (s0[i] + s0[i + ch] + s1[i] + s1[i + ch] + 2) >> 2);
+                }
+        }
+        return;
+    }
+    constexpr float kOne = 2048.0f;           // INTER_RESIZE_COEF_SCALE
+    std::vector<int> xofs(dw);
+    std::vector<int> xa0(dw), xa1(dw);
+    std::vector<char> xone(dw);               // one tap: sx at the right edge
+    for (int x = 0; x < dw; x++) {
+        float fx = static_cast<float>((x + 0.5) * scale_x - 0.5);
+        int sx = static_cast<int>(std::floor(fx));
+        fx -= static_cast<float>(sx);
+        if (sx < 0) fx = 0.0f, sx = 0;
+        xone[x] = sx + 1 >= sw;
+        if (sx >= sw - 1) fx = 0.0f, sx = sw - 1;
+        xofs[x] = sx;
+        xa0[x] = static_cast<short>(std::lrintf((1.0f - fx) * kOne));
+        xa1[x] = static_cast<short>(std::lrintf(fx * kOne));
+    }
+    std::vector<int> r0(drow), r1(drow);
+    auto hpass = [&](const uint8_t* s, int* out) {
+        for (int x = 0; x < dw; x++) {
+            const uint8_t* p = s + static_cast<int64_t>(xofs[x]) * ch;
+            for (int c = 0; c < ch; c++)
+                out[x * ch + c] = xone[x]
+                    ? p[c] * 2048
+                    : p[c] * xa0[x] + p[c + ch] * xa1[x];
+        }
+    };
+    int have0 = -1, have1 = -1;             // rows r0, r1 hold
+    for (int y = 0; y < dh; y++) {
+        float fy = static_cast<float>((y + 0.5) * scale_y - 0.5);
+        const int sy = static_cast<int>(std::floor(fy));
+        fy -= static_cast<float>(sy);
+        const int b0 = static_cast<short>(std::lrintf((1.0f - fy) * kOne));
+        const int b1 = static_cast<short>(std::lrintf(fy * kOne));
+        const int y0 = sy < 0 ? 0 : (sy < sh ? sy : sh - 1);
+        const int y1 = sy + 1 < 0 ? 0 : (sy + 1 < sh ? sy + 1 : sh - 1);
+        if (y0 == have1) {            // upscaling reads each row twice
+            std::swap(r0, r1);
+            std::swap(have0, have1);
+        }
+        if (y0 != have0) hpass(src + y0 * srow, r0.data()), have0 = y0;
+        if (y1 != have1) hpass(src + y1 * srow, r1.data()), have1 = y1;
+        uint8_t* d = dst + y * drow;
+        for (int64_t i = 0; i < drow; i++) {
+            const int v = (((b0 * (r0[i] >> 4)) >> 16) +
+                           ((b1 * (r1[i] >> 4)) >> 16) + 2) >> 2;
+            d[i] = static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
         }
     }
 }

@@ -1,4 +1,5 @@
-"""The port's host image library: JPEG codec, cv2-parity warp, joint disks.
+"""The port's host image library: JPEG codec, cv2-parity warp and resize,
+joint disks.
 
 Counterpart of ``fhpe_tpu/ops/native_image.py`` (ctypes bindings of
 ``ops/cpp/imagedec.cpp``).  The port has no cv2 and no PIL, so everything
@@ -13,6 +14,11 @@ the data path does to pixels goes through here:
   flags=INTER_LINEAR)``, with ``flip_src`` to warp ``img[:, ::-1]``
   without the copy (``fhpe_warp_affine_u8``, the same C text as
   ``fhpe_tpu``'s);
+* :func:`resize`: ``cv2.resize(img, dsize, interpolation=INTER_LINEAR)``
+  on uint8, bit-equal (``fhpe_resize_linear_u8``, OpenCV's fixed-point
+  arithmetic; an exact halving takes INTER_AREA's 2x2 mean, as cv2 does;
+  ``tests/test_torch_device_warp.py``): the letterbox canvas of
+  ``TPU.DEVICE_WARP``;
 * :func:`fill_disk`: ``cv2.circle(img, center, 6, color, -1)``.
 
 The library is C++ with a plain C interface, built by g++ at first use
@@ -185,6 +191,8 @@ def _load() -> Tuple[ctypes.CDLL, str]:
         _u8p, ci, ci, ci, _u8p, ci, ci, ctypes.POINTER(ctypes.c_double), ci,
         ci]
     lib.fhpe_warp_affine_u8.restype = None
+    lib.fhpe_resize_linear_u8.argtypes = [_u8p, ci, ci, ci, _u8p, ci, ci]
+    lib.fhpe_resize_linear_u8.restype = None
     return lib, name
 
 
@@ -304,12 +312,15 @@ def imwrite(path: str, img: np.ndarray, quality: int = JPEG_QUALITY) -> None:
 
 
 def warp_affine(img: np.ndarray, M: np.ndarray, dsize: Tuple[int, int],
-                flip_src: bool = False) -> np.ndarray:
+                flip_src: bool = False,
+                out: Optional[np.ndarray] = None) -> np.ndarray:
     """cv2.warpAffine(img, M, dsize, flags=INTER_LINEAR) — bit exact up to
     +-1 at exact .5 ties.
 
     ``dsize`` is (width, height), cv2 convention.  ``flip_src`` warps as
     if ``img[:, ::-1]`` had been passed, without materializing the flip.
+    ``out``: a C-contiguous uint8 array of the result's shape to write
+    into (a pinned batch slot, say) instead of a new one.
     """
     lib = get_lib()
     img = np.ascontiguousarray(img)
@@ -319,12 +330,41 @@ def warp_affine(img: np.ndarray, M: np.ndarray, dsize: Tuple[int, int],
     h, w, ch = img.shape
     dw, dh = int(dsize[0]), int(dsize[1])
     m = np.ascontiguousarray(M, dtype=np.float64)
-    out = np.empty((dh, dw, ch), dtype=np.uint8)
+    shape = (dh, dw) if squeeze else (dh, dw, ch)
+    if out is None:
+        out = np.empty(shape, dtype=np.uint8)
+    elif (out.shape != shape or out.dtype != np.uint8
+          or not out.flags.c_contiguous):
+        raise ValueError(f"out must be C-contiguous uint8 {shape}; got "
+                         f"{out.dtype} {out.shape}")
     lib.fhpe_warp_affine_u8(
         img.ctypes.data_as(_u8p), h, w, ch,
         out.ctypes.data_as(_u8p), dh, dw,
         m.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), 0,
         1 if flip_src else 0)
+    return out
+
+
+def resize(img: np.ndarray, dsize: Tuple[int, int]) -> np.ndarray:
+    """cv2.resize(img, dsize, interpolation=INTER_LINEAR) on uint8 (H, W)
+    or (H, W, C), C <= 4 — bit-equal (``fhpe_resize_linear_u8``): an
+    exact halving takes INTER_AREA's 2x2 mean as cv2 does, equal sizes
+    copy.  ``dsize`` is (width, height), cv2 convention."""
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (
+            img.ndim == 3 and not 1 <= img.shape[2] <= 4):
+        raise ValueError(f"resize takes uint8 (H, W) or (H, W, 1..4); got "
+                         f"{img.dtype} {img.shape}")
+    dw, dh = int(dsize[0]), int(dsize[1])
+    if dw <= 0 or dh <= 0 or 0 in img.shape:
+        raise ValueError(f"resize of a {img.shape} image to {dsize}")
+    lib = get_lib()
+    squeeze = img.ndim == 2
+    src = img[:, :, None] if squeeze else img
+    h, w, ch = src.shape
+    out = np.empty((dh, dw, ch), dtype=np.uint8)
+    lib.fhpe_resize_linear_u8(src.ctypes.data_as(_u8p), h, w, ch,
+                              out.ctypes.data_as(_u8p), dh, dw)
     return out[:, :, 0] if squeeze else out
 
 

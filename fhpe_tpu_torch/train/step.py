@@ -39,7 +39,7 @@ from ..geometry.flip import flip_back_torch
 from ..geometry.targets import generate_target_torch
 from ..models import is_multi_output
 from ..ops.decode import decode_argmax, decode_heatmaps
-from ..ops.preprocess import normalize_images
+from ..ops.preprocess import normalize_images, warp_affine
 from ..utils.dtype import autocast, compute_dtype
 from ..utils.graph import CapturedStep, constant, storage_fingerprint
 from .loss import fpd_loss, stacked_mse_loss, stacked_ohkm_loss
@@ -53,7 +53,11 @@ def make_batch_preprocessor(cfg, joints_weight=None):
     ``joints`` (B, J, 2) and ``joints_vis`` (B, J) on the device; the
     closure normalizes (/255, ImageNet mean/std) to NCHW float32 and
     stamps the Gaussian targets (B, J, h, w) and ``target_weight`` (B, J).
-    A batch that already has ``target`` is returned as it is.
+    With ``TPU.DEVICE_WARP`` the batch carries uint8 letterbox canvases
+    ``canvas`` (B, Hc, Wc, 3) and their dst->canvas matrices ``warp_inv``
+    (B, 2, 3) in place of ``image``: the closure first crops them to the
+    model input (``ops/preprocess.py::warp_affine``).  A batch that
+    already has ``target`` (and no canvas) is returned as it is.
     """
     img_size = tuple(cfg.MODEL.IMAGE_SIZE)      # (W, H)
     hm_size = tuple(cfg.MODEL.HEATMAP_SIZE)     # (W, H)
@@ -64,18 +68,18 @@ def make_batch_preprocessor(cfg, joints_weight=None):
         jw = np.asarray(joints_weight, dtype=np.float32).reshape(-1)
 
     def prepare(batch):
-        if "canvas" in batch:
-            raise NotImplementedError(
-                "TPU.DEVICE_WARP (warping crops from the letterbox canvas on "
-                "the device) is not ported yet (ROADMAP.md queue A, the "
-                "device warp)")
-        if "target" in batch:
-            return batch
         out = dict(batch)
-        out["image"] = normalize_images(batch["image"])
-        out["target"], out["target_weight"] = generate_target_torch(
-            batch["joints"], batch["joints_vis"], hm_size, img_size, sigma,
-            joints_weight=jw, use_different_joints_weight=use_diff)
+        if "canvas" in batch:
+            out["image"] = normalize_images(warp_affine(
+                batch["canvas"], batch["warp_inv"], img_size))
+        elif "target" in batch:
+            return batch
+        else:
+            out["image"] = normalize_images(batch["image"])
+        if "target" not in batch:
+            out["target"], out["target_weight"] = generate_target_torch(
+                batch["joints"], batch["joints_vis"], hm_size, img_size,
+                sigma, joints_weight=jw, use_different_joints_weight=use_diff)
         return out
 
     return prepare

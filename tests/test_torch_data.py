@@ -246,9 +246,15 @@ def test_decode_cache_and_zip(roots, tmp_path, monkeypatch):
         got, ref = (s.get_sample(i) for s in srcs[::-1])
         _same_sample(got, ref, native=True)
         np.testing.assert_array_equal(got["image"], plain[i]["image"])
-    with pytest.raises(NotImplementedError, match="DEVICE_WARP"):
-        _sources(_cfgs("mpii", roots[0], **{"TPU.DEVICE_WARP": True}), db,
-                 True)
+    # TPU.DEVICE_WARP: a training sample is a letterbox canvas and its
+    # matrix, fhpe_tpu's (tests/test_torch_device_warp.py holds the rest)
+    warp_cfgs = _cfgs("mpii", roots[0], native=True,
+                      **{"TPU.DEVICE_WARP": True})
+    got, ref = (s.get_sample(0) for s in _sources(warp_cfgs, db, True)[::-1])
+    assert "image" not in got and got.keys() == ref.keys()
+    assert got["canvas"].shape == (512, 512, 3)
+    np.testing.assert_array_equal(got["canvas"], ref["canvas"])
+    np.testing.assert_array_equal(got["warp_inv"], ref["warp_inv"])
 
 
 def test_build_loaders_synthetic_dir(tmp_path):

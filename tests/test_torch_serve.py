@@ -1,25 +1,36 @@
 """Port Predictor against the fhpe_tpu Predictor on the same weights.
 
 float32 on the CPU, flip test + SHIFT_HEATMAP + POST_PROCESS on, a
-non-square input (W 64 x H 128), and 13 crops through a batch of 8, so the
-run pads and takes two chunks.  The port decodes with the plain version
-of the CUDA kernel here.
+non-square input (W 64 x H 128), and 13 crops (or boxes of one frame)
+through a batch of 8, so the run pads and takes two chunks.  The port
+decodes with the plain version of the CUDA kernel here, and runs its
+double-buffered chunk pipeline without streams or pinned memory.
+``fhpe_tpu``'s config sets ``TPU.NATIVE_WARP``, so its ``crop`` takes the
+C warp the port's crop shares.
 """
+
+import sys
 
 import numpy as np
 import pytest
 import torch
 
 from fhpe_tpu.serve import Predictor as PredictorJax
+from fhpe_tpu.serve.predictor import \
+    xywh_to_center_scale as xywh_to_center_scale_jax
+from fhpe_tpu_torch.models import get_pose_net
 from fhpe_tpu_torch.ops import decode
+from fhpe_tpu_torch.ops.decode import make_inverse_transforms
 from fhpe_tpu_torch.ops.decode_cases import decision_margin
 from fhpe_tpu_torch.serve import Predictor
+from fhpe_tpu_torch.serve.predictor import xywh_to_center_scale
 from fhpe_tpu_torch.utils.convert import state_dict_from_jax
 
 from test_torch_hourglass import _cfg, _jax_variables
 
 W, H = 64, 128
 N = 13
+FRAME_HW = (180, 240)
 
 
 def _serve_cfg():
@@ -31,7 +42,18 @@ def _serve_cfg():
     cfg.TEST.FLIP_TEST = True
     cfg.TEST.SHIFT_HEATMAP = True
     cfg.TEST.POST_PROCESS = True
+    cfg.TPU.NATIVE_WARP = True
     return cfg
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Tiny models: two intra-op threads run them as fast as all cores do
+    and spare the other test processes."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")
@@ -47,7 +69,27 @@ def setup():
     return cfg, variables, port, (crops, centers, scales)
 
 
-def test_predict_crops_matches_jax_predictor(setup):
+@pytest.fixture(scope="module")
+def ref(setup):
+    """fhpe_tpu's Predictor on the same weights (one jit for the module)."""
+    cfg, variables = setup[:2]
+    return PredictorJax(cfg, variables, batch_size=8, n_devices=1)
+
+
+@pytest.fixture(scope="module")
+def frame():
+    """A noise frame and N person boxes near the crop's own scale, some
+    across the frame's left and top borders.  Seeded so that the decode's
+    decisions on the crops keep a margin (see the crops test)."""
+    rng = np.random.RandomState(2)
+    image = rng.randint(0, 256, size=FRAME_HW + (3,)).astype(np.uint8)
+    h, w = FRAME_HW
+    boxes = [(rng.uniform(-10, w - 40), rng.uniform(-10, h - 80),
+              rng.uniform(40, 56), rng.uniform(80, 110)) for _ in range(N)]
+    return image, boxes
+
+
+def test_predict_crops_matches_jax_predictor(setup, ref):
     """preds within 1e-3 px, maxvals within 1e-4.
 
     The forwards differ by float32 rounding (< 1e-4, see
@@ -62,7 +104,6 @@ def test_predict_crops_matches_jax_predictor(setup):
     launches = decode.decode_kernel_launches
     preds, maxvals = port.predict_crops(crops, centers, scales)
     assert decode.decode_kernel_launches == launches   # CPU: plain version
-    ref = PredictorJax(cfg, variables, batch_size=8, n_devices=1)
     ref_preds, ref_maxvals = ref.predict_crops(crops, centers, scales)
 
     assert preds.shape == (N, 16, 2) and preds.dtype == np.float32
@@ -105,3 +146,114 @@ def test_multi_device_serving_not_ported(setup):
     cfg.TPU.NUM_DEVICES = 2
     with pytest.raises(NotImplementedError):
         Predictor(cfg, setup[2].model, device="cpu")
+
+
+def test_xywh_to_center_scale_matches_jax():
+    for box in [(10, 20, 100, 50), (0, 0, 30, 300), (5, 5, 64, 64),
+                (-12.5, 3.25, 7, 9)]:
+        for got, want in zip(xywh_to_center_scale(box, W / H),
+                             xywh_to_center_scale_jax(box, W / H)):
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want)
+
+
+def test_crop_bit_equal_to_jax(setup, ref, frame):
+    """``crop`` against fhpe_tpu's ``TPU.NATIVE_WARP`` crop: bit-equal,
+    boxes across the frame's borders included."""
+    port = setup[2]
+    image, boxes = frame
+    for box in boxes:
+        c, s = xywh_to_center_scale(box, port.aspect_ratio)
+        got = port.crop(image, c, s)
+        assert got.shape == (H, W, 3) and got.dtype == np.uint8
+        np.testing.assert_array_equal(got, ref.crop(image, c, s))
+
+
+def test_predict_matches_jax_predictor(setup, ref, frame):
+    """``predict`` on a frame against fhpe_tpu's: preds within 1e-3 px,
+    confidences within 1e-4 (the bars of the crops test, with its
+    decision-margin check first), and equal to ``predict_crops`` of
+    ``crop``'s crops, which crops everything first."""
+    cfg, _, port, _ = setup
+    image, boxes = frame
+    cs = [xywh_to_center_scale(b, port.aspect_ratio) for b in boxes]
+    centers = np.stack([c for c, _ in cs])
+    scales = np.stack([s for _, s in cs])
+    crops = np.stack([port.crop(image, c, s) for c, s in cs])
+    hm = port.merged_heatmaps(torch.from_numpy(crops)).numpy()
+    assert decision_margin(hm).min() > 1e-4
+
+    got = port.predict(image, boxes)
+    assert got.shape == (N, 16, 3) and got.dtype == np.float32
+    preds, maxvals = port.predict_crops(crops, centers, scales)
+    np.testing.assert_array_equal(got[..., :2], preds)
+    np.testing.assert_array_equal(got[..., 2], maxvals)
+    want = ref.predict(image, boxes)
+    np.testing.assert_allclose(got[..., :2], want[..., :2], rtol=0,
+                               atol=1e-3)
+    np.testing.assert_allclose(got[..., 2], want[..., 2], rtol=0, atol=1e-4)
+
+
+def test_predict_empty_and_bad_frames(setup):
+    port = setup[2]
+    image = np.zeros(FRAME_HW + (3,), np.uint8)
+    out = port.predict(image, [])
+    assert out.shape == (0, 16, 3) and out.dtype == np.float32
+    preds, maxvals = port.predict_crops(np.zeros((0, H, W, 3), np.uint8),
+                                        np.zeros((0, 2)), np.zeros((0, 2)))
+    assert preds.shape == (0, 16, 2) and maxvals.shape == (0, 16)
+    with pytest.raises(ValueError, match="uint8"):
+        port.predict(image.astype(np.float32), [(0, 0, 10, 10)])
+    with pytest.raises(ValueError, match="uint8"):
+        port.predict(image[..., 0], [(0, 0, 10, 10)])
+
+
+@pytest.mark.parametrize("batch,max_in_flight", [(8, 1), (8, 2), (2, 1)])
+def test_pipelined_predict_crops_equals_serial_steps(setup, batch,
+                                                     max_in_flight):
+    """The double-buffered pipeline against the step run chunk by chunk on
+    zero-padded batches (the loop it replaced): bit-equal, N = 13, whatever
+    the number of results left waiting.  Batch 2 reuses each of its two
+    slots three times; the interpreter switches threads every 10 us, so
+    that a slot refilled before its chunk was read would show."""
+    cfg, _, port, (crops, centers, scales) = setup
+    port = Predictor(cfg, port.model, batch_size=batch, device="cpu")
+    inv = make_inverse_transforms(centers, scales, port.heatmap_size)
+    serial_p, serial_v = [], []
+    for lo in range(0, N, batch):
+        hi = min(lo + batch, N)
+        img = torch.zeros((batch, H, W, 3), dtype=torch.uint8)
+        itr = torch.zeros((batch, 2, 3), dtype=torch.float32)
+        img[:hi - lo] = torch.from_numpy(crops[lo:hi])
+        itr[:hi - lo] = torch.from_numpy(inv[lo:hi])
+        out = port.step(port.model, {"image": img, "inv_trans": itr})
+        serial_p.append(out["preds"][:hi - lo])
+        serial_v.append(out["maxvals"][:hi - lo])
+    port.max_in_flight = max_in_flight
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        preds, maxvals = port.predict_crops(crops, centers, scales)
+    finally:
+        sys.setswitchinterval(interval)
+    np.testing.assert_array_equal(preds, torch.cat(serial_p).numpy())
+    np.testing.assert_array_equal(maxvals, torch.cat(serial_v).numpy())
+
+
+def test_flip_pairs_argument(setup):
+    """A joint layout outside the registry: both packages refuse it with
+    the same text unless ``flip_pairs=`` is given; given, the flip test
+    swaps those pairs."""
+    cfg = _serve_cfg()
+    cfg.MODEL.NUM_JOINTS = 5
+    model = get_pose_net(cfg)
+    with pytest.raises(ValueError, match="pass flip_pairs= explicitly") as e:
+        Predictor(cfg, model, batch_size=8, device="cpu")
+    with pytest.raises(ValueError) as e_jax:
+        PredictorJax(cfg, {}, batch_size=8, n_devices=1)
+    assert str(e.value) == str(e_jax.value)
+    port = Predictor(cfg, model, batch_size=8, device="cpu",
+                     flip_pairs=[[0, 1], [2, 4]])
+    assert port._perm.tolist() == [1, 0, 4, 3, 2]
+    hm = port.merged_heatmaps(torch.from_numpy(setup[3][0][:2]))
+    assert hm.shape == (2, 5, H // 4, W // 4)

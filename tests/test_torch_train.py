@@ -200,8 +200,15 @@ def test_targets_and_preprocessor_match_jax(diff_weight):
                                rtol=0, atol=1e-6)
     np.testing.assert_allclose(got["image"].numpy(), _nchw(ref["image"]),
                                rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="DEVICE_WARP"):
-        make_batch_preprocessor(cfg_t)({"canvas": None})
+    # TPU.DEVICE_WARP: the crops as canvases with identity matrices give
+    # the same image and targets (the warp is held in
+    # tests/test_torch_device_warp.py)
+    canvas = make_batch_preprocessor(cfg_t, jw)(dict(
+        _to_torch({k: raw[k] for k in ("joints", "joints_vis")}),
+        canvas=torch.from_numpy(raw["image"]),
+        warp_inv=torch.tensor([[1.0, 0, 0], [0, 1, 0]]).expand(6, 2, 3)))
+    for k in ("image", "target", "target_weight"):
+        assert torch.equal(canvas[k], got[k]), k
     with pytest.raises(ValueError, match="integer"):
         generate_target_torch(torch.zeros(1, J, 2), torch.ones(1, J),
                               (16, 16), (HW, HW), 1.5)
