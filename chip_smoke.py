@@ -37,6 +37,11 @@ holds each captured step against its body:
   epochs, a resume to a third, checkpoints) and ``cli.train`` on
   PoseResNet-50 COCO (one epoch to AP), each followed by ``cli.test``
   on its ``final_state.pth``;
+* data-parallel training, one process per GPU: the hourglass FPD step in
+  a NCCL process group (``parallel.initialize``) with its collectives
+  inside the captured graph, and ``torchrun --nproc_per_node 1 -m
+  fhpe_tpu_torch.cli.fpd_train`` with a resume (the machine has one GPU,
+  so the world size is 1);
 * PoseResNet-50 on COCO 256x192 (``res50_256x192_d256x3_adam_lr1e-3.yaml``,
   He-scale weights from a seed): serving through ``Predictor``, the plain
   train step (``create_train_state`` -> ``make_batch_preprocessor`` ->
@@ -224,7 +229,26 @@ Phases; any failure raises and exits non-zero:
     augmentation draws (mean and median bars of
     ``tests/test_device_warp.py``); then, in turns with the host-warp feed
     of the same files: the loader alone, the step fed by it, its idle
-    share, the upload's host ms and MB per batch.
+    share, the upload's host ms and MB per batch;
+30. data-parallel training at world size 1 (the machine's one GPU):
+    (a) phase 12's hourglass FPD pair (bf16, batch 32, Adam) in a NCCL
+    process group joined by ``parallel.initialize`` (a loopback
+    ``MASTER_PORT``): 3 captured distributed steps bit-equal to 3
+    captured single-device steps from the same state and batches, and to
+    the distributed eager body (parameters, BN buffers, Adam's moments
+    and steps, each step's metrics); P4 59 and decode 2 launches per
+    step; the collectives the body issues (3 all-reduces, 1 broadcast),
+    the NCCL version, one profiled replay of each graph (kernels, NCCL's
+    kernels and their time, copies; NCCL's average kernel must be in the
+    distributed replay), images/s of both graphs in turns; the group is
+    destroyed after; (b) ``torchrun --standalone --nproc_per_node 1 -m
+    fhpe_tpu_torch.cli.fpd_train`` on phase 25's settings over phase
+    14b's synthetic MPII JPEGs (written again): 2 epochs of 2 steps, its
+    log naming world size 1 and backend ``nccl``, then a second launch
+    resumes to a third epoch (checkpoint and Adam at step 6), then
+    ``cli.test.main`` in this process on its ``final_state.pth`` gives the
+    last validation's predictions (its ``pred.mat``) and PCKh Mean
+    exactly; each launch's wall time and where it went.
 
 Phases 15, 20, 4b and 16 run right after 11, in that order; W32 serving
 (phases 8 and 10) also counts 52 P5e launches per chunk.
@@ -240,6 +264,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import datetime
 import json
 import logging
 import math
@@ -407,6 +432,13 @@ CANVAS_WARP_ATOL = 1e-3
 # against the host-warped crops of the same augmentation draws: one more
 # bilinear resample (the bars of tests/test_device_warp.py:56-58)
 HOST_WARP_MEAN, HOST_WARP_MEDIAN = 6.0, 3.0
+
+# phase 30: the data-parallel FPD step and CLI, one process per device (the
+# card's machine has one GPU: world size 1)
+DDP_STEPS = 3
+DDP_CLI_EPOCHS = 2         # then a resume to a third
+DDP_CLI_TIMEOUT_S = 300    # per torchrun launch
+DDP_RUN_TAG = "chip_smoke_ddp"
 
 # Card peaks for the bound (NVIDIA H100 SXM data sheet, dense).
 HBM_BYTES_PER_S = 3.35e12
@@ -3434,6 +3466,353 @@ def phase_canvas_step(device, totals, label, root: Path) -> None:
     del state, teacher, step
 
 
+# -- phase 30: data-parallel training under torchrun -----------------------
+
+def free_port() -> int:
+    """A TCP port on the loopback that nothing listens on now."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def step_record(state, metrics) -> dict:
+    """{group: {name: tensor}}: the state (parameters, buffers, Adam's
+    moments and step counts) and each step's metrics."""
+    groups = state_tensors(state)
+    names = {id(p): k for k, p in state.model.named_parameters()}
+    groups["adam_step"] = {names[id(p)]: st["step"]
+                           for p, st in state.optimizer.state.items()}
+    groups["metrics"] = {f"{k}@{i}": v for i, m in enumerate(metrics)
+                         for k, v in m.items()}
+    return groups
+
+
+def unequal(a: dict, b: dict) -> list:
+    """The tensors of two :func:`step_record` that are not bit-equal."""
+    import torch
+    return [f"{g}:{k}" for g, ts in a.items() for k, t in ts.items()
+            if not torch.equal(t, b[g][k])]
+
+
+# NCCL's device kernels: its collectives' (ncclDevKernel_*) and the one a
+# single rank runs for an average (oneRankReduce)
+NCCL_KERNEL = re.compile(r"nccl|onerankreduce", re.I)
+
+
+def replay_ops(events) -> dict:
+    """What the device ran in a trace: kernels and their ms, NCCL's
+    kernels and their us, copies and their us, and {kernel name: (count,
+    us)}."""
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    nccl = [e for e in kernels if NCCL_KERNEL.search(e["name"])]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"]
+    names = {}
+    for e in kernels:
+        n, us = names.get(e["name"], (0, 0.0))
+        names[e["name"]] = (n + 1, us + float(e["dur"]))
+    return {"kernels": len(kernels),
+            "kernel_ms": sum(float(e["dur"]) for e in kernels) / 1e3,
+            "nccl": len(nccl), "nccl_us": sum(float(e["dur"]) for e in nccl),
+            "copies": len(copies),
+            "copy_us": sum(float(e["dur"]) for e in copies), "names": names}
+
+
+def extra_kernels(ops: dict, base: dict) -> str:
+    """The kernels a replay ran beyond another's: name, count, us."""
+    out = []
+    for name, (n, us) in sorted(ops["names"].items()):
+        m = n - base["names"].get(name, (0, 0.0))[0]
+        if m > 0:
+            out.append(f"{name[:70]} x{m} ({us * m / n:.1f} us)")
+    return "; ".join(out) or "none"
+
+
+@contextlib.contextmanager
+def counted_collectives():
+    """A context counting the calls to ``torch.distributed.all_reduce`` and
+    ``broadcast`` (they still run); yields the Counter."""
+    import torch.distributed as dist
+    calls = Counter()
+    stack = contextlib.ExitStack()
+    for name in ("all_reduce", "broadcast"):
+        orig = getattr(dist, name)
+
+        def counted(*a, _orig=orig, _name=name, **k):
+            calls[_name] += 1
+            return _orig(*a, **k)
+        stack.enter_context(mock.patch.object(dist, name, counted))
+    with stack:
+        yield calls
+
+
+def phase_ddp_step(device, totals, label) -> None:
+    """Phase 30a: the hourglass FPD step (phase 12's pair at full width,
+    bf16, batch 32, Adam) in a process group of one rank joined through
+    ``parallel.initialize`` (NCCL on the card, gloo on the CPU), against
+    the same step without a group."""
+    import torch
+    from fhpe_tpu_torch import parallel
+    from fhpe_tpu_torch.tools.train_parity import fpd_cfgs, train_batch
+    from fhpe_tpu_torch.train import (create_train_state,
+                                      make_batch_preprocessor,
+                                      make_fpd_train_step)
+    from fhpe_tpu_torch.utils.profiling import trace_events
+
+    scfg, tcfg = fpd_cfgs()
+    teacher = seeded_model(tcfg, 100).to(device)
+    base = create_train_state(scfg, seeded_model(scfg, 0), device=device)
+    batches = [train_batch(scfg, TRAIN_BATCH, seed=50 + i, device=device)
+               for i in range(DDP_STEPS)]
+
+    def make_step():
+        return make_fpd_train_step(scfg, teacher, tcfg,
+                                   prepare=make_batch_preprocessor(scfg))
+
+    def run(fn, state):
+        return [fn(state, b)[1] for b in batches]
+
+    single_state, single = copy.deepcopy(base), make_step()
+    single_rec = step_record(single_state, run(single, single_state))
+    env = {"RANK": "0", "WORLD_SIZE": "1",
+           "LOCAL_RANK": str(device.index or 0),
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    with mock.patch.dict(os.environ, env):
+        own = parallel.initialize(device.type)
+    try:
+        nccl = (".".join(map(str, torch.cuda.nccl.version()))
+                if device.type == "cuda" else "none")
+        log("ddp-step", f"process group: backend {parallel.backend()}, world "
+            f"size {parallel.process_count()}, rank "
+            f"{parallel.process_index()} on {own}; NCCL {nccl}; torch "
+            f"{torch.__version__}")
+        ddp_state, ddp = copy.deepcopy(base), make_step()
+        with counted_collectives() as calls:
+            metrics, counts = main_path_run(totals,
+                                            lambda: run(ddp, ddp_state))
+        want = expected(device, conv3x3_wgrad=P4_PER_STEP * DDP_STEPS,
+                        decode_heatmaps=K1_PER_TRAIN_STEP * DDP_STEPS)
+        captures = ddp.captured.captures
+        if counts != want or captures != on_card(device, 1):
+            raise AssertionError(f"ddp-step: launches {counts}, want {want};"
+                                 f" {captures} captures")
+        ddp_rec = step_record(ddp_state, metrics)
+        eager_state = copy.deepcopy(base)
+        eager_rec = step_record(eager_state, run(ddp.eager, eager_state))
+        vs_single, vs_eager = (unequal(ddp_rec, single_rec),
+                               unequal(ddp_rec, eager_rec))
+        if vs_single or vs_eager:
+            raise AssertionError(f"ddp-step: not bit-equal to the single-"
+                                 f"device graph in {vs_single[:5]}, to its "
+                                 f"eager body in {vs_eager[:5]}")
+        n = sum(len(g) for g in ddp_rec.values())
+        # bodies run: on the card the first call's and the capture's
+        # (replays issue nothing from the host), on the CPU each step's
+        bodies = 2 if device.type == "cuda" else DDP_STEPS
+        per_body = {k: v // bodies for k, v in calls.items()}
+        log("ddp-step", f"{DDP_STEPS} steps from one state (the first eager "
+            f"then {captures} capture, the rest replays): all {n} tensors "
+            f"(parameters, buffers, Adam's moments and steps, the metrics "
+            f"of each step) bit-equal to the single-device graph's and to "
+            f"the distributed eager body's; collectives issued per body: "
+            f"{dict(per_body)}")
+        if device.type == "cuda":
+            events, counts = main_path_run(totals, lambda: trace_events(
+                lambda: ddp(ddp_state, batches[0])))
+            want = expected(device, conv3x3_wgrad=P4_PER_STEP,
+                            decode_heatmaps=K1_PER_TRAIN_STEP)
+            if counts != want:
+                raise AssertionError(f"ddp-step: one profiled replay "
+                                     f"launched {counts}, want {want}")
+            ops = {"distributed": replay_ops(events),
+                   "single": replay_ops(trace_events(
+                       lambda: single(single_state, batches[0])))}
+            log("ddp-step", "one profiled replay of each graph: " + "; ".join(
+                f"{k} {v['kernels']} kernels ({v['kernel_ms']:.2f} ms), "
+                f"{v['nccl']} NCCL kernels ({v['nccl_us']:.1f} us), "
+                f"{v['copies']} copies ({v['copy_us']:.1f} us)"
+                for k, v in ops.items()) + f"; P4 "
+                f"{counts['conv3x3_wgrad']} and decode "
+                f"{counts['decode_heatmaps']} launches per replay; the "
+                f"distributed replay's kernels beyond the single one's: "
+                + extra_kernels(ops["distributed"], ops["single"]))
+            # the averages (gradients, losses) run NCCL's kernel even at
+            # one rank; in place, its sum and broadcast run nothing
+            if not ops["distributed"]["nccl"]:
+                raise AssertionError("ddp-step: no NCCL kernel in the "
+                                     "profiled replay of the distributed "
+                                     "graph")
+
+        def steps(fn, state):
+            return lambda: [fn(state, batches[0])
+                            for _ in range(GRAPH_TIMED_STEPS)]
+
+        rates = in_turns({"distributed": steps(ddp, ddp_state),
+                          "single": steps(single, single_state)},
+                         GRAPH_TIMED_STEPS * TRAIN_BATCH, device)
+        log("ddp-step", f"graph images/s: distributed "
+            f"{rates['distributed']:.1f}, single-device "
+            f"{rates['single']:.1f} (medians of 3 x "
+            f"{GRAPH_TIMED_STEPS} steps in turns); {label}")
+    finally:
+        parallel.shutdown()
+    if parallel.initialized():
+        raise AssertionError("ddp-step: the process group outlived shutdown")
+
+
+def run_process_group(cmd, log_path: Path, timeout: float) -> float:
+    """``cmd`` from the repository root in a session of its own, its output
+    into ``log_path``; on a timeout the whole session is killed.  Raises on
+    a non-zero exit with the log's tail.  Returns the wall seconds."""
+    import signal
+    import subprocess
+    env = dict(os.environ, FHPE_RUN_TAG=DDP_RUN_TAG)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=out,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            code = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            raise AssertionError(f"{cmd[:8]} ran over {timeout} s; log "
+                                 f"tail:\n{log_path.read_text()[-4000:]}")
+    if code:
+        raise AssertionError(f"{cmd[:8]} exited {code}; log tail:\n"
+                             f"{log_path.read_text()[-6000:]}")
+    return time.perf_counter() - t0
+
+
+def phase_ddp_cli(device, totals, label) -> None:
+    """Phase 30b: ``torchrun --standalone --nproc_per_node 1 -m
+    fhpe_tpu_torch.cli.fpd_train`` on phase 25's pair and settings over
+    phase 14b's synthetic MPII JPEGs (``write_mpii_sets`` again):
+    ``DDP_CLI_EPOCHS`` epochs, a second launch resumes to one more, then
+    ``cli.test`` in this process gives the last validation's predictions
+    exactly."""
+    import torch
+    from scipy.io import loadmat
+    from fhpe_tpu_torch.cli import test as test_cli
+    from fhpe_tpu_torch.config import load_config
+    from fhpe_tpu_torch.tools.train_parity import STUDENT_YAML as FPD_YAML
+    from fhpe_tpu_torch.utils import checkpoint as ck
+
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        root = Path(tmp)
+        mpii = root / "mpii"
+        opts = ["OUTPUT_DIR", str(root / "out"), "LOG_DIR", str(root / "log"),
+                "DATASET.ROOT", str(mpii), "DATASET.CACHE_ROOT", "",
+                "TPU.COMPUTE_DTYPE", "bfloat16", "TPU.DEAD_BIAS_SKIP", "True",
+                "TRAIN.BATCH_SIZE_PER_GPU", str(TRAIN_BATCH),
+                "PRINT_FREQ", "1", "AUTO_RESUME", "True"]
+        tcfg = load_config(str(FPD_YAML), opts)
+        side = int(tcfg.MODEL.IMAGE_SIZE[0])
+        write_mpii_sets(mpii, (side, side))
+        tcfg.defrost()
+        tcfg.merge_from_file(str(TEACHER_YAML))
+        teacher_pth = root / "teacher.pth"
+        ck.save_weights(str(teacher_pth), seeded_model(tcfg, 100))
+        torchrun = [sys.executable, "-m", "torch.distributed.run",
+                    "--standalone", "--nproc_per_node", "1",
+                    "-m", "fhpe_tpu_torch.cli.fpd_train",
+                    "--cfg", str(FPD_YAML), "--tcfg", str(TEACHER_YAML),
+                    "--device", device.type, *opts,
+                    "KD.TEACHER", str(teacher_pth)]
+        run_dir = (root / "out" / "mpii" / "hourglass"
+                   / f"{FPD_YAML.stem}_{DDP_RUN_TAG}")
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+        def launch(end_epoch, name):
+            """(wall s, rank 0's log messages, the checkpoint, where the
+            launch's time went); the log holds every launch so far."""
+            start = time.time()
+            wall = run_process_group(
+                torchrun + ["TRAIN.END_EPOCH", str(end_epoch)],
+                root / f"{name}.log", DDP_CLI_TIMEOUT_S)
+            stamped = [(datetime.datetime.strptime(m.group(1),
+                                                   "%Y-%m-%d %H:%M:%S,%f"
+                                                   ).timestamp(), m.group(2))
+                       for m in map(re.compile(
+                           r"^(\d{4}-\d\d-\d\d \S+) (.*)$").match,
+                           (run_dir / "running.log").read_text().splitlines())
+                       if m]
+            now = [(t, msg) for t, msg in stamped if t >= start - 1]
+            first_step = next(t for t, msg in now
+                              if msg.startswith("Epoch: ["))
+            split = (f"start-up to the first log line "
+                     f"{now[0][0] - start:.1f} s, to the first train step "
+                     f"{first_step - start:.1f} s, the rest "
+                     f"{start + wall - first_step:.1f} s")
+            saved = ck.load_checkpoint_file(str(run_dir / ck.CKPT_NAME))
+            return wall, [msg for _, msg in stamped], saved, split
+
+        steps = 2 * DDP_CLI_EPOCHS
+        wall, lines, saved, split = launch(DDP_CLI_EPOCHS, "first")
+        want_line = ("device: cuda:0, rank 0 of world size 1, backend nccl"
+                     if device.type == "cuda" else
+                     "device: cpu, rank 0 of world size 1, backend gloo")
+        evals = sum(ln.startswith("Test: loss") for ln in lines)
+        losses = [float(m.group(1)) for m in (re.search(
+            r"Loss ([-\d.einaf]+) ", ln) for ln in lines
+            if ln.startswith("Epoch: [")) if m]
+        if (want_line not in lines or evals != 2 + DDP_CLI_EPOCHS
+                or (saved["epoch"], saved["step"]) != (DDP_CLI_EPOCHS, steps)
+                or len(losses) != steps
+                or not all(math.isfinite(v) for v in losses)):
+            raise AssertionError(
+                f"ddp-cli: log names {want_line!r}: {want_line in lines}; "
+                f"{evals} validations; checkpoint epoch {saved['epoch']} "
+                f"step {saved['step']}; losses {losses}")
+        log("ddp-cli", f"torchrun --nproc_per_node 1 cli.fpd_train: "
+            f"{wall:.2f} s for the launch (interpreter, process group, "
+            f"both pre-training validations, {DDP_CLI_EPOCHS} epochs of 2 "
+            f"steps, a validation after each: {split}); logged "
+            f"{want_line!r}; "
+            f"losses {', '.join(f'{v:.5f}' for v in losses)}; "
+            + cli_speeds(lines) + f"; {label}")
+
+        wall, lines, saved, split = launch(DDP_CLI_EPOCHS + 1, "resume")
+        adam = {int(s["step"]) for s in saved["optimizer"]["state"].values()}
+        resumed = [ln for ln in lines
+                   if ln.startswith(f"=> auto-resumed from epoch "
+                                    f"{DDP_CLI_EPOCHS} ")]
+        if len(resumed) != 1 or (saved["epoch"], saved["step"], adam) != (
+                DDP_CLI_EPOCHS + 1, steps + 2, {steps + 2}):
+            raise AssertionError(f"ddp-cli resume: {resumed}; checkpoint "
+                                 f"epoch {saved['epoch']}, step "
+                                 f"{saved['step']}, Adam steps {adam}")
+        last = [re.search(r"\(perf ([-\d.]+),", ln).group(1) for ln in lines
+                if ln.startswith("=> saving checkpoint")][-1]
+        log("ddp-cli", f"resume launch {wall:.2f} s ({split}): "
+            f"{resumed[0]}; "
+            f"checkpoint at epoch {saved['epoch']}, step {saved['step']}, "
+            f"Adam steps {sorted(adam)}; last PCKh Mean {last}")
+
+        preds = loadmat(str(run_dir / "pred.mat"))["preds"]
+        (run_dir / "pred.mat").rename(root / "torchrun_pred.mat")
+        test = cli_run(test_cli, ["--cfg", str(FPD_YAML), "--device",
+                                  str(device), *opts, "TEST.MODEL_FILE",
+                                  str(run_dir / ck.FINAL_NAME)], totals)
+        per_batch = math.ceil(MPII_PEOPLE / TRAIN_BATCH)
+        check_cli("ddp-cli test", test, expected(
+            device, decode_heatmaps=K1_PER_EVAL_BATCH * per_batch), 1, 0)
+        got = test["vals"][0][2][:, :, 0:2] + 1.0
+        if not np.array_equal(got, preds) or f"{test['result']:.4f}" != last:
+            raise AssertionError(
+                f"ddp-cli test: PCKh Mean {test['result']:.4f} against the "
+                f"torchrun run's last {last}; predictions max |diff| "
+                f"{np.abs(got - preds).max():.3g}")
+        log("ddp-cli", f"cli.test on final_state.pth: PCKh Mean "
+            f"{test['result']:.4f}, and all {preds.shape[0]} people's "
+            f"predictions equal to the torchrun run's last validation "
+            f"(its pred.mat)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3528,6 +3907,8 @@ def main() -> int:
     phase_frame_serving(device, totals, label)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         phase_canvas_step(device, totals, label, Path(tmp) / "mpii")
+    phase_ddp_step(device, totals, label)
+    phase_ddp_cli(device, totals, label)
 
     for name in KERNELS:
         if totals[name] <= 0:

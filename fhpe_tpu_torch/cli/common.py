@@ -1,15 +1,22 @@
-"""Shared CLI wiring: arguments, datasets and loaders, batches on the
-device, the validation pass and the dataset-metric dispatch.
+"""Shared CLI wiring: arguments, the process group, datasets and
+loaders, batches on the device, the validation pass and the
+dataset-metric dispatch.
 
-Counterpart of ``fhpe_tpu/cli/common.py``, on one device with no process
-sharding (``BatchLoader``'s ``process_index`` 0 of 1):
+Counterpart of ``fhpe_tpu/cli/common.py``, one process per device: run
+alone, or one of N under ``torchrun --nproc_per_node N``
+(``parallel/mesh.py``):
 
 * :func:`parse_args` (``fhpe_tpu``'s, plus ``--device``, default
   ``cuda``), :func:`load_cfg_from_args` (a copy), :func:`resolve_device`
   (a card that is asked for and missing ends the CLI; it never goes on on
-  the CPU) and :func:`check_supported` (what the port refuses);
+  the CPU; under ``torchrun`` the process joins its group there) and
+  :func:`check_supported` (what the port refuses);
+* :func:`create_run_logger`: the run directory and its log on rank 0
+  only (``fhpe_tpu``'s processes share one host's files the same way);
 * :func:`build_loaders`: db -> ``PoseDataSource`` -> ``BatchLoader``,
-  train and validation;
+  train (this process's slice of each global batch of
+  ``TRAIN.BATCH_SIZE_PER_GPU`` x world size) and validation (unsharded,
+  ``TEST.BATCH_SIZE_PER_GPU``: rank 0 validates alone);
 * :func:`train_batch_keys` and :func:`eval_batch_transform` (copies,
   pinned by ``tests/test_torch_port_hygiene.py``): what a train or eval
   step takes from a host batch;
@@ -26,6 +33,7 @@ sharding (``BatchLoader``'s ``process_index`` 0 of 1):
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 import time
 from collections import OrderedDict
@@ -37,8 +45,11 @@ from ..config import load_config
 from ..data import BatchLoader, PoseDataSource, build_db, dataset_meta
 from ..geometry.flip import flip_pair_permutation
 from ..ops.decode import make_inverse_transforms
+from ..parallel import (backend, broadcast_object, initialize, initialized,
+                        is_main_process, process_count, process_index,
+                        shutdown)
 from ..train import make_batch_preprocessor, make_eval_step
-from ..utils.logger import AverageMeter, print_name_value
+from ..utils.logger import AverageMeter, create_logger, print_name_value
 
 
 def parse_args(description: str, teacher: bool = False, argv=None):
@@ -68,18 +79,56 @@ def load_cfg_from_args(args, cfg_attr="cfg"):
 
 def resolve_device(name: str) -> torch.device:
     """``--device`` as a torch device; a CUDA device without a card ends
-    the CLI with a message (it never falls back to the CPU)."""
+    the CLI with a message (it never falls back to the CPU).  Under
+    ``torchrun`` the process joins its group here (NCCL for ``cuda``,
+    gloo for ``cpu``; a failure raises) and ``cuda`` is
+    ``cuda:LOCAL_RANK``; the caller calls ``parallel.shutdown`` on its way
+    out."""
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {name}: torch.cuda.is_available() is "
                          f"False; pass --device cpu to run on the CPU")
-    return device
+    own = initialize(device.type)
+    if own is None:
+        return device
+    if device.index is not None and device != own:
+        shutdown()
+        raise SystemExit(f"--device {name} under torchrun: this process's "
+                         f"device is {own} (LOCAL_RANK); pass --device "
+                         f"{device.type}")
+    return own
+
+
+def process_text(device) -> str:
+    """This process's device, and its rank, world size and backend in a
+    process group."""
+    if not initialized():
+        return f"device: {device}"
+    return (f"device: {device}, rank {process_index()} of world size "
+            f"{process_count()}, backend {backend()}")
+
+
+def create_run_logger(cfg, cfg_name: str, phase: str):
+    """(logger, output_dir, tb_dir): ``create_logger`` on rank 0 (the run
+    directory, ``running.log``, the TensorBoard directory); on the other
+    ranks a console logger whose lines carry the rank, with rank 0's
+    paths.  No other rank writes into the run directory."""
+    if is_main_process():
+        logger, output_dir, tb_dir = create_logger(cfg, cfg_name, phase)
+    else:
+        logging.basicConfig(format=f"%(asctime)-15s [rank "
+                            f"{process_index()}] %(message)s")
+        logger = logging.getLogger()
+        logger.setLevel(logging.INFO)
+        output_dir = tb_dir = None
+    output_dir, tb_dir = broadcast_object((output_dir, tb_dir))
+    return logger, output_dir, tb_dir
 
 
 def check_supported(cfg) -> None:
     """Refuse what the port does not do yet, rather than skip it in
-    silence.  ``TPU.NUM_DEVICES > 1`` is refused by
-    ``create_train_state``."""
+    silence.  A ``TPU.NUM_DEVICES`` that does not fit the process group
+    is refused by ``create_train_state``."""
     if cfg.DEBUG.DEBUG:
         raise NotImplementedError(
             "DEBUG.DEBUG (debug image dumps) is not ported yet (ROADMAP.md "
@@ -99,10 +148,13 @@ def tb_writer(tb_dir: str, logger):
 
 
 def build_loaders(cfg, synthetic_dir: str | None = None, train: bool = True):
-    """(train_loader, val_loader, meta) for one device: batches of
-    ``TRAIN.BATCH_SIZE_PER_GPU`` / ``TEST.BATCH_SIZE_PER_GPU``.
-    synthetic_dir swaps in the hermetic synthetic db (for smoke runs
-    without real data)."""
+    """(train_loader, val_loader, meta).  The train loader's global batch
+    is ``TRAIN.BATCH_SIZE_PER_GPU`` x world size, of which this process
+    gets its contiguous ``TRAIN.BATCH_SIZE_PER_GPU`` (every rank draws the
+    same order from ``TRAIN.SEED``); the validation loader is unsharded
+    with batches of ``TEST.BATCH_SIZE_PER_GPU``, as ``fhpe_tpu`` sizes
+    validation by the one process's local devices.  synthetic_dir swaps
+    in the hermetic synthetic db (for smoke runs without real data)."""
     meta = dataset_meta(cfg.DATASET.DATASET)
 
     if synthetic_dir is not None:
@@ -124,10 +176,11 @@ def build_loaders(cfg, synthetic_dir: str | None = None, train: bool = True):
                              joints_weight=meta["joints_weight"],
                              seed=seed)
         train_loader = BatchLoader(
-            src, batch_size=cfg.TRAIN.BATCH_SIZE_PER_GPU,
+            src, batch_size=cfg.TRAIN.BATCH_SIZE_PER_GPU * process_count(),
             shuffle=cfg.TRAIN.SHUFFLE, drop_last=True,
             host_targets=not cfg.TPU.DEVICE_PREPROCESS,
-            num_threads=max(2, cfg.WORKERS), seed=seed)
+            num_threads=max(2, cfg.WORKERS), seed=seed,
+            process_index=process_index(), process_count=process_count())
 
     val_src = PoseDataSource(cfg, db_val, is_train=False,
                              flip_pairs=meta["flip_pairs"],

@@ -1,17 +1,21 @@
 """FPD distillation training CLI.
 
 Counterpart of ``fhpe_tpu/cli/fpd_train.py`` (the reference's
-``tools/fpd_train.py``) on one device: student config via ``--cfg``,
+``tools/fpd_train.py``), on one device or one process per device under
+``torchrun`` as ``cli/train.py``: student config via ``--cfg``,
 teacher via ``--tcfg`` merged over it; teacher weights from
 ``KD.TEACHER`` (required — the reference's NORMAL mode crashes on an
 undefined teacher, fpd_train.py:244, and is not supported here either);
-both models validated before epoch 0 as a sanity check; per-epoch FPD
-step with ``loss = (1-alpha)*MSE(student, gt) + alpha*MSE(student,
-teacher)``; checkpoints and AUTO_RESUME as ``cli/train.py``.
+both models validated before epoch 0 as a sanity check (on rank 0);
+per-epoch FPD step with ``loss = (1-alpha)*MSE(student, gt) +
+alpha*MSE(student, teacher)``, the teacher in eval mode in every process;
+checkpoints and AUTO_RESUME as ``cli/train.py``.
 
 Usage:
   python -m fhpe_tpu_torch.cli.fpd_train --cfg <student.yaml> \\
       --tcfg <teacher.yaml> [--device cuda|cpu] [KEY VALUE ...]
+  torchrun --nproc_per_node N -m fhpe_tpu_torch.cli.fpd_train --cfg ... \\
+      --tcfg ... [...]
 """
 
 from __future__ import annotations
@@ -19,15 +23,16 @@ from __future__ import annotations
 import os
 
 from ..models import get_pose_net, param_count
+from ..parallel import is_main_process, shutdown
 from ..train import (create_train_state, make_batch_preprocessor,
                      make_fpd_train_step, param_dtype)
 from ..utils.checkpoint import load_model_weights
-from ..utils.logger import create_logger, save_config_yaml
+from ..utils.logger import save_config_yaml
 from ..utils.pretrained import load_pretrained
 from . import train as train_cli
-from .common import (build_loaders, check_supported, load_cfg_from_args,
-                     make_evaluate_fn, parse_args, resolve_device, tb_writer,
-                     validate)
+from .common import (build_loaders, check_supported, create_run_logger,
+                     load_cfg_from_args, make_evaluate_fn, parse_args,
+                     process_text, resolve_device, tb_writer, validate)
 
 FPD_METERS = ("loss", "pose_loss", "kd_loss")
 FPD_TB_NAMES = {"loss": "train_loss", "pose_loss": "train_pose_loss",
@@ -56,7 +61,13 @@ def main(argv=None):
     check_supported(cfg)
     train_cli.check_checkpoint_path(cfg)
     device = resolve_device(args.device)
+    try:
+        run(args, cfg, device)
+    finally:
+        shutdown()
 
+
+def run(args, cfg, device):
     # teacher cfg: clone of student cfg merged with the teacher file
     # (reference fpd_train.py:128-131)
     tcfg = cfg.clone()
@@ -64,10 +75,14 @@ def main(argv=None):
     tcfg.merge_from_file(args.tcfg)
     tcfg.freeze()
 
-    logger, output_dir, tb_dir = create_logger(cfg, args.cfg, "fpd_train")
-    logger.info(f"device: {device}")
-    save_config_yaml(cfg, os.path.join(output_dir, "config.yaml"))
-    save_config_yaml(tcfg, os.path.join(output_dir, "teacher_config.yaml"))
+    logger, output_dir, tb_dir = create_run_logger(cfg, args.cfg,
+                                                   "fpd_train")
+    logger.info(process_text(device))
+    rank0 = is_main_process()
+    if rank0:
+        save_config_yaml(cfg, os.path.join(output_dir, "config.yaml"))
+        save_config_yaml(tcfg, os.path.join(output_dir,
+                                            "teacher_config.yaml"))
 
     state = create_train_state(cfg, seed=int(cfg.TRAIN.get("SEED", 0)),
                                device=device)
@@ -85,7 +100,7 @@ def main(argv=None):
                                                      logger)
 
     train_loader, val_loader, meta = build_loaders(cfg)
-    writer = tb_writer(tb_dir, logger)
+    writer = tb_writer(tb_dir, logger) if rank0 else None
     try:
         prepare = (make_batch_preprocessor(cfg, meta["joints_weight"])
                    if cfg.TPU.DEVICE_PREPROCESS else None)
@@ -94,15 +109,16 @@ def main(argv=None):
         evaluate_fn = make_evaluate_fn(cfg, device=device)
 
         # pre-training sanity validation of both models
-        # (fpd_train.py:242-250)
-        logger.info("=> validating teacher before training")
-        tperf = validate(cfg, teacher, val_loader, meta, logger,
-                         evaluate_fn, output_dir)[0]
-        logger.info(f"=> teacher perf: {tperf:.4f}")
-        logger.info("=> validating student before training")
-        sperf = validate(cfg, state.model, val_loader, meta, logger,
-                         evaluate_fn, output_dir)[0]
-        logger.info(f"=> student perf: {sperf:.4f}")
+        # (fpd_train.py:242-250), on rank 0
+        if rank0:
+            logger.info("=> validating teacher before training")
+            tperf = validate(cfg, teacher, val_loader, meta, logger,
+                             evaluate_fn, output_dir)[0]
+            logger.info(f"=> teacher perf: {tperf:.4f}")
+            logger.info("=> validating student before training")
+            sperf = validate(cfg, state.model, val_loader, meta, logger,
+                             evaluate_fn, output_dir)[0]
+            logger.info(f"=> student perf: {sperf:.4f}")
 
         global_step = 0
 

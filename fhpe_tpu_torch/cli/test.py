@@ -3,9 +3,10 @@
 Counterpart of ``fhpe_tpu/cli/test.py`` (the reference's
 ``tools/test.py``) on one device: load ``TEST.MODEL_FILE`` (or
 ``final_state.pth`` of the run dir), run the full validation pass with
-flip-test and dataset metrics.  Any layout ``utils/checkpoint.py::
-load_model_weights`` reads loads, the reference's released ``.pth``
-files among them.
+flip-test and dataset metrics.  Under ``torchrun`` rank 0 evaluates and
+the other ranks return None, as ``fhpe_tpu``'s process 0 does.  Any
+layout ``utils/checkpoint.py::load_model_weights`` reads loads, the
+reference's released ``.pth`` files among them.
 
 Usage:
   python -m fhpe_tpu_torch.cli.test --cfg <cfg.yaml> [--device cuda|cpu] \\
@@ -17,21 +18,33 @@ from __future__ import annotations
 import os
 
 from ..models import get_pose_net, param_count
+from ..parallel import is_main_process, shutdown
 from ..train import param_dtype
 from ..utils.checkpoint import FINAL_NAME, load_model_weights
-from ..utils.logger import create_logger
-from .common import (build_loaders, check_supported, load_cfg_from_args,
-                     make_evaluate_fn, parse_args, resolve_device, validate)
+from .common import (build_loaders, check_supported, create_run_logger,
+                     load_cfg_from_args, make_evaluate_fn, parse_args,
+                     process_text, resolve_device, validate)
 
 
 def main(argv=None):
     """Returns the perf indicator (PCKh Mean, COCO AP, or the PCK proxy
-    on ``synthetic``)."""
+    on ``synthetic``); None on a rank other than 0."""
     args = parse_args("Test keypoints network", argv=argv)
     cfg = load_cfg_from_args(args)
     check_supported(cfg)
     device = resolve_device(args.device)
-    logger, output_dir, _ = create_logger(cfg, args.cfg, "valid")
+    try:
+        return run(args, cfg, device)
+    finally:
+        shutdown()
+
+
+def run(args, cfg, device):
+    logger, output_dir, _ = create_run_logger(cfg, args.cfg, "valid")
+    logger.info(process_text(device))
+    if not is_main_process():
+        logger.info("=> rank 0 evaluates")
+        return None
 
     model_file = cfg.TEST.MODEL_FILE or os.path.join(output_dir, FINAL_NAME)
     if not os.path.exists(model_file):

@@ -1,15 +1,22 @@
 """Normal training CLI.
 
 Counterpart of ``fhpe_tpu/cli/train.py`` (the reference's
-``tools/train.py``) on one device: config merge, run-dir logger,
+``tools/train.py``): config merge, run-dir logger,
 datasets/loaders, optimizer + epoch-boundary LR schedule,
 ``MODEL.PRETRAINED``, the ``TRAIN.CHECKPOINT`` warm start, AUTO_RESUME,
 epoch loop train -> validate -> checkpoint, final state dump.  In place
 of ``fhpe_tpu``'s model summary table it logs the parameter count.
 
+On one device, or data-parallel with one process per device under
+``torchrun`` (the global batch ``TRAIN.BATCH_SIZE_PER_GPU`` x N, the
+steps' collectives in ``train/step.py``): every rank trains every step;
+rank 0 alone validates, writes the run directory (log, config, TensorBoard,
+checkpoints, final state) and decides a resume, which it broadcasts.
+
 Usage:
   python -m fhpe_tpu_torch.cli.train --cfg experiments/mpii/hourglass/hg4.yaml \\
       [--device cuda|cpu] [TRAIN.END_EPOCH 140 ...]
+  torchrun --nproc_per_node N -m fhpe_tpu_torch.cli.train --cfg ... [...]
 """
 
 from __future__ import annotations
@@ -20,16 +27,19 @@ import time
 import torch
 
 from ..models import param_count
+from ..parallel import is_main_process, shutdown
 from ..train import (create_train_state, lr_for_epoch,
                      make_batch_preprocessor, make_optimizer,
                      make_train_step, set_lr)
-from ..utils.checkpoint import (auto_resume, load_model_weights, save_best,
-                                save_checkpoint, save_final_state)
-from ..utils.logger import WindowedMeters, create_logger, save_config_yaml
+from ..utils.checkpoint import (auto_resume_multihost, load_model_weights,
+                                save_best, save_checkpoint,
+                                save_final_state)
+from ..utils.logger import WindowedMeters, save_config_yaml
 from ..utils.pretrained import load_pretrained
-from .common import (build_loaders, check_supported, device_batch,
-                     load_cfg_from_args, make_evaluate_fn, parse_args,
-                     resolve_device, tb_writer, validate)
+from .common import (build_loaders, check_supported, create_run_logger,
+                     device_batch, load_cfg_from_args, make_evaluate_fn,
+                     parse_args, process_text, resolve_device, tb_writer,
+                     validate)
 
 
 class StepProfiler:
@@ -125,15 +135,21 @@ def check_checkpoint_path(cfg) -> None:
 
 
 def resume(cfg, state, output_dir, logger):
-    """(state, begin_epoch, best_perf), from AUTO_RESUME when it finds the
-    run dir's checkpoint."""
+    """(state, begin_epoch, best_perf), from AUTO_RESUME when rank 0 finds
+    the run dir's checkpoint (every rank loads rank 0's).  The log line
+    carries the parameters' float64 sum, one number to compare across
+    ranks."""
     begin_epoch, best_perf = cfg.TRAIN.BEGIN_EPOCH, -1.0
     if cfg.AUTO_RESUME:
-        state, ckpt_epoch, ckpt_perf = auto_resume(output_dir, state)
+        state, ckpt_epoch, ckpt_perf = auto_resume_multihost(output_dir,
+                                                             state)
         if ckpt_epoch is not None:
             begin_epoch, best_perf = ckpt_epoch, ckpt_perf
+            total = sum(float(p.detach().double().sum())
+                        for p in state.model.parameters())
             logger.info(f"=> auto-resumed from epoch {begin_epoch} "
-                        f"(best perf {best_perf:.4f}, step {state.step})")
+                        f"(best perf {best_perf:.4f}, step {state.step}, "
+                        f"parameter sum {total!r})")
     return state, begin_epoch, best_perf
 
 
@@ -143,14 +159,17 @@ def epoch_loop(cfg, state, begin_epoch, best_perf, train_epoch, evaluate,
     ``lr_for_epoch``, ``train_epoch(state, epoch)``, validation every
     ``EVAL_FREQ`` epochs and at the last, the ``>=`` best ratchet, the
     rolling checkpoint every ``CKPT_FREQ`` evaluations and at the last,
-    ``model_best`` on a best epoch whose checkpoint is skipped."""
+    ``model_best`` on a best epoch whose checkpoint is skipped.  Every
+    rank trains every epoch at the same rate; validation, the ratchet and
+    every write are rank 0's (``fhpe_tpu/cli/train.py:207-230``)."""
     eval_freq = max(1, int(cfg.TRAIN.get("EVAL_FREQ", 1)))
     ckpt_freq = max(1, int(cfg.TRAIN.get("CKPT_FREQ", 1)))
+    rank0 = is_main_process()
     for epoch in range(begin_epoch, cfg.TRAIN.END_EPOCH):
         state = set_lr(state, lr_for_epoch(cfg, epoch))
         state = train_epoch(state, epoch)
         last = epoch + 1 == cfg.TRAIN.END_EPOCH
-        if not ((epoch + 1) % eval_freq == 0 or last):
+        if not rank0 or not ((epoch + 1) % eval_freq == 0 or last):
             continue
         perf = evaluate(state, epoch)
         if writer is not None:
@@ -167,8 +186,9 @@ def epoch_loop(cfg, state, begin_epoch, best_perf, train_epoch, evaluate,
             # ratchets every eval — snapshot model_best now or these
             # weights are lost and later epochs can't re-qualify.
             save_best(output_dir, state)
-    save_final_state(output_dir, state)
-    logger.info(f"=> saved final state to {output_dir}")
+    if rank0:
+        save_final_state(output_dir, state)
+        logger.info(f"=> saved final state to {output_dir}")
     return state
 
 
@@ -178,9 +198,18 @@ def main(argv=None):
     check_supported(cfg)
     check_checkpoint_path(cfg)
     device = resolve_device(args.device)
-    logger, output_dir, tb_dir = create_logger(cfg, args.cfg, "train")
-    logger.info(f"device: {device}")
-    save_config_yaml(cfg, os.path.join(output_dir, "config.yaml"))
+    try:
+        run(args, cfg, device)
+    finally:
+        shutdown()
+
+
+def run(args, cfg, device):
+    logger, output_dir, tb_dir = create_run_logger(cfg, args.cfg, "train")
+    logger.info(process_text(device))
+    rank0 = is_main_process()
+    if rank0:
+        save_config_yaml(cfg, os.path.join(output_dir, "config.yaml"))
 
     state = create_train_state(cfg, seed=int(cfg.TRAIN.get("SEED", 0)),
                                device=device)
@@ -194,7 +223,7 @@ def main(argv=None):
     state, begin_epoch, best_perf = resume(cfg, state, output_dir, logger)
 
     train_loader, val_loader, meta = build_loaders(cfg)
-    writer = tb_writer(tb_dir, logger)
+    writer = tb_writer(tb_dir, logger) if rank0 else None
     try:
         prepare = (make_batch_preprocessor(cfg, meta["joints_weight"])
                    if cfg.TPU.DEVICE_PREPROCESS else None)

@@ -246,7 +246,9 @@ class Predictor:
         thread, ahead of the device.  Returns (preds, maxvals) numpy.
 
         Each chunk has a host slot (pinned on the card) and a device slot,
-        ``max_in_flight + 1`` of each, reused in turn.  The prefetch thread
+        ``max(max_in_flight, 1) + 1`` of each (at most one per chunk),
+        reused in turn: the prefetch of chunk k+1 never writes the slot
+        chunk k's step reads, whatever ``max_in_flight``.  The prefetch thread
         refills a host slot only after its last upload ended (an event),
         and the side copy stream overwrites a device slot only after the
         step that read it was enqueued (an event on the current stream).
@@ -264,7 +266,7 @@ class Predictor:
         w, h = self.image_size
         cuda = self.device.type == "cuda"
         chunks = -(-n // b)
-        nslots = min(self.max_in_flight + 1, chunks)
+        nslots = min(max(self.max_in_flight, 1) + 1, chunks)
 
         def new_slot(device, pin=False):
             return (torch.empty((b, h, w, 3), dtype=torch.uint8,

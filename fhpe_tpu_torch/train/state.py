@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from ..models import get_pose_net
+from ..parallel import resolve_num_devices
 from ..utils.dtype import compute_dtype
 
 
@@ -102,12 +103,10 @@ def create_train_state(cfg, model: Optional[nn.Module] = None, seed: int = 0,
     """Put ``model`` (or a fresh ``get_pose_net(cfg)``, initialised from
     ``seed``) on ``device`` in train mode, with a fresh optimizer.
     Parameters are float32 (float64 in the CPU parity mode); bf16 compute
-    runs under autocast.  Training runs on one device."""
-    if int(cfg.TPU.NUM_DEVICES) > 1:
-        raise NotImplementedError(
-            "training over several devices is not ported yet (ROADMAP.md "
-            "queue A, the multi-device steps); set TPU.NUM_DEVICES to 1 "
-            "or -1")
+    runs under autocast.  ``TPU.NUM_DEVICES`` must fit the process group
+    (``parallel.resolve_num_devices``); every rank draws the same
+    initialisation from ``seed`` on the CPU, so the ranks start equal."""
+    resolve_num_devices(cfg)
     if model is None:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)

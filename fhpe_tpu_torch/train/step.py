@@ -1,4 +1,4 @@
-"""Train, FPD and eval steps on one device.
+"""Train, FPD and eval steps, on one device or data-parallel.
 
 Counterpart of ``fhpe_tpu/train/step.py`` (the reference's hot loops,
 ``lib/core/function.py:28-332``).  Where ``fhpe_tpu`` compiles each step
@@ -20,7 +20,18 @@ Every step keeps its body as ``step.eager``:
 Every argmax (the decode and both sides of the PCK counts) goes through
 the decode kernel K1 (``ops/decode.py``); every 3x3 stride-1 filter
 gradient of the student's backward through the P4 kernel
-(``ops/conv_wgrad.py``, via ``models/common.py::Conv3x3``).  Metrics stay
+(``ops/conv_wgrad.py``, via ``models/common.py::Conv3x3``).
+
+In a process group (``parallel/mesh.py``, one process per device under
+``torchrun``) the train bodies call the collectives where ``fhpe_tpu``'s
+SPMD steps call ``pmean`` / ``psum`` (``fhpe_tpu/train/step.py:196-219``,
+``:264-292``): the gradients and the losses are averaged over the ranks,
+the PCK counts summed before they are finalized, and after the update the
+BatchNorm running statistics are reconciled by ``TPU.BN_STATS``
+(``device0``: rank 0's, as DataParallel keeps its master replica's
+buffers; ``mean``: their average).  They sit inside the body, so on the
+card the graph captures them.  Without a group they do nothing.  The
+eval step has none: validation runs on rank 0 alone.  Metrics stay
 device tensors until the caller reads them, fresh ones each step (never
 the graph's own outputs).  BatchNorm keeps its running statistics as
 torch does in train mode (``fhpe_tpu``'s ``_TorchBatchNorm`` rebuilds
@@ -34,12 +45,14 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..geometry.flip import flip_back_torch
 from ..geometry.targets import generate_target_torch
 from ..models import is_multi_output
 from ..ops.decode import decode_argmax, decode_heatmaps
 from ..ops.preprocess import normalize_images, warp_affine
+from ..parallel import all_reduce_mean_, all_reduce_sum_, broadcast_
 from ..utils.dtype import autocast, compute_dtype
 from ..utils.graph import CapturedStep, constant, storage_fingerprint
 from .loss import fpd_loss, stacked_mse_loss, stacked_ohkm_loss
@@ -143,18 +156,52 @@ def _stacked(outputs, multi_output: bool):
     return outputs, outputs
 
 
-def _metrics(loss, final, target):
+def _resolve_bn_stats(cfg, bn_stats):
+    """Resolve + validate the BN-stats reconciliation mode.
+
+    Only "device0" (DataParallel-faithful) and "mean" are valid: every
+    rank keeps the same running statistics, so per-device ("local") ones
+    would let the ranks' models drift apart."""
+    if bn_stats is None:
+        bn_stats = cfg.TPU.get("BN_STATS", "device0")
+    if bn_stats not in ("device0", "mean"):
+        raise ValueError(
+            f"TPU.BN_STATS must be 'device0' or 'mean', got '{bn_stats}'")
+    return bn_stats
+
+
+def _metrics(losses: dict, final, target):
+    """The losses averaged over the ranks, and the PCK finalized from the
+    ranks' summed counts."""
     with torch.no_grad():
+        losses = {k: v.detach() for k, v in losses.items()}
+        all_reduce_mean_(list(losses.values()))
         hits, valids = _pck_counts(final.detach(), target)
+        all_reduce_sum_([hits, valids])
         per_joint, avg, cnt = _finalize_pck(hits, valids)
-    return {"loss": loss.detach(), "acc": avg, "acc_cnt": cnt,
-            "per_joint_acc": per_joint}
+    return {**losses, "acc": avg, "acc_cnt": cnt, "per_joint_acc": per_joint}
 
 
 def _update(state: TrainState, loss) -> None:
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    all_reduce_mean_([p.grad for p in state.model.parameters()])
     state.optimizer.step()
+
+
+def _reconcile_bn(model: nn.Module, bn_stats: str) -> None:
+    """Every rank's BatchNorm running mean and variance made equal
+    (``num_batches_tracked`` is equal already): rank 0's
+    (``device0``) or their average (``mean``)."""
+    stats = [t for m in model.modules()
+             if isinstance(m, nn.modules.batchnorm._BatchNorm)
+             and m.running_mean is not None
+             for t in (m.running_mean, m.running_var)]
+    with torch.no_grad():
+        if bn_stats == "device0":
+            broadcast_(stats, src=0)
+        else:
+            all_reduce_mean_(stats)
 
 
 def _compiled_train_step(body, teacher=None) -> Callable:
@@ -184,19 +231,23 @@ def _compiled_train_step(body, teacher=None) -> Callable:
     return step
 
 
-def make_train_step(cfg, prepare=None) -> Callable:
+def make_train_step(cfg, prepare=None, bn_stats=None) -> Callable:
     """``(state, batch) -> (state, metrics)``: one supervised step.
 
     batch: {"image" (B, 3, H, W) float or (B, H, W, 3) uint8, "target"
-    (B, J, h, w), "target_weight" (B, J)} on the state's device, or the
-    raw batch a ``prepare`` closure (:func:`make_batch_preprocessor`)
-    takes.  The student runs ``train()`` under ``TPU.COMPUTE_DTYPE``.
-    On the card the step is a captured graph (``.eager``: the body).
+    (B, J, h, w), "target_weight" (B, J)} on the state's device (this
+    rank's slice of the global batch in a process group), or the raw
+    batch a ``prepare`` closure (:func:`make_batch_preprocessor`) takes.
+    The student runs ``train()`` under ``TPU.COMPUTE_DTYPE``.
+    ``bn_stats`` (default ``TPU.BN_STATS``): how the ranks' BatchNorm
+    running statistics are reconciled.  On the card the step is a
+    captured graph (``.eager``: the body).
     """
     use_tw = bool(cfg.LOSS.USE_TARGET_WEIGHT)
     use_ohkm = bool(cfg.LOSS.USE_OHKM)
     topk = int(cfg.LOSS.TOPK)
     prepare = prepare or _identity_prepare
+    bn_stats = _resolve_bn_stats(cfg, bn_stats)
 
     def body(state: TrainState, batch):
         batch = prepare(batch)
@@ -211,13 +262,14 @@ def make_train_step(cfg, prepare=None) -> Callable:
         else:
             loss = stacked_mse_loss(stacked, batch["target"], tw)
         _update(state, loss)
-        return _metrics(loss, final, batch["target"])
+        _reconcile_bn(model, bn_stats)
+        return _metrics({"loss": loss}, final, batch["target"])
 
     return _compiled_train_step(body)
 
 
-def make_fpd_train_step(cfg, teacher, teacher_cfg=None,
-                        prepare=None) -> Callable:
+def make_fpd_train_step(cfg, teacher, teacher_cfg=None, prepare=None,
+                        bn_stats=None) -> Callable:
     """``(state, batch) -> (state, metrics)``: one FPD distillation step.
 
     ``teacher`` (an ``nn.Module`` on the state's device, frozen) runs in
@@ -226,14 +278,17 @@ def make_fpd_train_step(cfg, teacher, teacher_cfg=None,
     comes from ``teacher_cfg`` (the reference builds kd_pose_criterion
     from the teacher config, fpd_train.py:145-147); it defaults to
     ``cfg``.  Metrics: loss, pose_loss, kd_loss, acc, acc_cnt,
-    per_joint_acc.  On the card the step, the teacher's forward included,
-    is one captured graph (``.eager``: the body).
+    per_joint_acc.  ``bn_stats`` as :func:`make_train_step` (the frozen
+    teacher, in eval mode, keeps its statistics).  On the card the step,
+    the teacher's forward and the collectives included, is one captured
+    graph (``.eager``: the body).
     """
     tcfg = teacher_cfg or cfg
     use_tw = bool(cfg.LOSS.USE_TARGET_WEIGHT)
     use_tw_kd = bool(tcfg.LOSS.USE_TARGET_WEIGHT)
     alpha = float(cfg.KD.ALPHA)
     prepare = prepare or _identity_prepare
+    bn_stats = _resolve_bn_stats(cfg, bn_stats)
     teacher_multi = is_multi_output(teacher)
 
     def body(state: TrainState, batch):
@@ -253,9 +308,9 @@ def make_fpd_train_step(cfg, teacher, teacher_cfg=None,
             alpha, use_target_weight_pose=use_tw,
             use_target_weight_kd=use_tw_kd)
         _update(state, loss)
-        metrics = _metrics(loss, final, batch["target"])
-        metrics.update(pose_loss=pose.detach(), kd_loss=kd.detach())
-        return metrics
+        _reconcile_bn(model, bn_stats)
+        return _metrics({"loss": loss, "pose_loss": pose, "kd_loss": kd},
+                        final, batch["target"])
 
     return _compiled_train_step(body, teacher)
 

@@ -17,7 +17,9 @@ file write on one background thread per run directory with one write in
 flight.  ``flush_pending`` joins outstanding writes; every read path calls
 it first.  :func:`load_model_weights` reads the reference's released
 ``.pth`` files too (a bare ``state_dict``, ``{"state_dict"}``,
-``{"best_state_dict"}``, ``module.``-prefixed keys).
+``{"best_state_dict"}``, ``module.``-prefixed keys).  In a process group
+the CLIs write on rank 0 alone, and :func:`auto_resume_multihost` hands
+rank 0's checkpoint to every rank.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+
+from ..parallel import broadcast_object, initialized, is_main_process
 
 CKPT_NAME = "checkpoint.pth"
 BEST_NAME = "model_best.pth"
@@ -208,18 +212,44 @@ def _load_optimizer_state(optimizer, saved: dict) -> None:
     optimizer.load_state_dict(dict(saved, param_groups=groups))
 
 
+def _read_resume(output_dir: str):
+    """``output_dir``'s rolling checkpoint, or None when there is none."""
+    flush_pending(output_dir)
+    path = os.path.join(output_dir, CKPT_NAME)
+    if not os.path.exists(path):
+        return None
+    return load_checkpoint_file(path)
+
+
+def _resume_from(state, payload):
+    if payload is None:
+        return state, None, None
+    state.model.load_state_dict(payload["state_dict"])
+    _load_optimizer_state(state.optimizer, payload["optimizer"])
+    state.step = int(payload.get("step", 0))
+    return state, int(payload["epoch"]), float(payload["perf"])
+
+
 def auto_resume(output_dir: str, state):
     """(state, begin_epoch, perf) from ``output_dir``'s rolling checkpoint,
     or (state, None, None) when there is none.  Restores the weights, the
     optimizer (Adam's moments and step counts, cast by
     ``optimizer.load_state_dict`` to the parameters' device and dtype) and
     the step count in place."""
-    flush_pending(output_dir)
-    path = os.path.join(output_dir, CKPT_NAME)
-    if not os.path.exists(path):
-        return state, None, None
-    payload = load_checkpoint_file(path)
-    state.model.load_state_dict(payload["state_dict"])
-    _load_optimizer_state(state.optimizer, payload["optimizer"])
-    state.step = int(payload.get("step", 0))
-    return state, int(payload["epoch"]), float(payload["perf"])
+    return _resume_from(state, _read_resume(output_dir))
+
+
+def auto_resume_multihost(output_dir: str, state):
+    """AUTO_RESUME in a process group: rank 0 decides, every rank follows
+    (``fhpe_tpu``'s ``auto_resume_multihost``).
+
+    Only rank 0 writes checkpoints, so a rank reading its own disk would
+    resume at another epoch than rank 0, and the ranks' steps and rates
+    would part.  Rank 0 reads its checkpoint and broadcasts it, weights,
+    BatchNorm buffers, optimizer state, epoch and perf, as one object;
+    every rank then loads it as :func:`auto_resume` does.  No shared
+    filesystem is assumed.  Without a group: :func:`auto_resume`."""
+    if not initialized():
+        return auto_resume(output_dir, state)
+    payload = _read_resume(output_dir) if is_main_process() else None
+    return _resume_from(state, broadcast_object(payload))

@@ -367,10 +367,13 @@ def _state_snapshot(state):
             "step": state.step}
 
 
-def test_auto_resume(tmp_path):
+def test_auto_resume(tmp_path, monkeypatch):
     """AUTO_RESUME after 1 of 2 epochs restores the epoch, the perf, the
     weights, Adam's moments and steps as saved; the resumed run goes on
     from there (its Adam steps continue from 2)."""
+    # both runs in one run directory, whose default suffix is the launch
+    # minute: a run crossing a minute would otherwise resume nothing
+    monkeypatch.setenv("FHPE_RUN_TAG", "resume")
     cfg_path = _synthetic_cfg(tmp_path)
     saved = []
     orig = ck.save_checkpoint

@@ -248,7 +248,8 @@ def test_hrnet_eval_step_matches_jax(mesh):
 
 def test_create_train_state_for_the_coco_student():
     """W32 FPD student: Adam at lr 1e-3 over every parameter, train mode,
-    every branch chain routed to P5; several devices still refused."""
+    every branch chain routed to P5; several devices only under
+    torchrun."""
     cfg = load_config(STUDENT_YAML)
     state = create_train_state(cfg, seed=0, device="cpu")
     assert isinstance(state.optimizer, torch.optim.Adam)
@@ -260,5 +261,5 @@ def test_create_train_state_for_the_coco_student():
                for m in state.model.modules()) == 26
     cfg.defrost()
     cfg.TPU.NUM_DEVICES = 4
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 4"):
         create_train_state(cfg, device="cpu")

@@ -71,6 +71,8 @@ def test_port_imports_no_jax():
             "'scripts', 'fused_block', 'fused_block_kernels', "
             "'dw_pallas_probe', 'cv2', 'PIL'))\n"
             "assert not bad, bad\n"
+            "assert 'fhpe_tpu_torch.parallel.mesh' in names\n"
+            "assert 'fhpe_tpu_torch.tools.ddp_parity' in names\n"
             "print(len(names))\n")
     env = dict(os.environ, FHPE_PLATFORM="cpu")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -78,8 +80,9 @@ def test_port_imports_no_jax():
     assert proc.returncode == 0, proc.stderr
     # every module of the port, the CLI slice's cli/train.py,
     # cli/fpd_train.py, cli/test.py and utils/{checkpoint,logger,
-    # pretrained}.py among them
-    assert int(proc.stdout.split()[-1]) >= 62, proc.stdout
+    # pretrained}.py among them, and the data-parallel slice's
+    # parallel/{__init__,mesh}.py and tools/ddp_parity.py
+    assert int(proc.stdout.split()[-1]) >= 65, proc.stdout
 
 
 @pytest.mark.parametrize("path", EXPERIMENTS)

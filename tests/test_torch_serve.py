@@ -208,7 +208,8 @@ def test_predict_empty_and_bad_frames(setup):
         port.predict(image[..., 0], [(0, 0, 10, 10)])
 
 
-@pytest.mark.parametrize("batch,max_in_flight", [(8, 1), (8, 2), (2, 1)])
+@pytest.mark.parametrize("batch,max_in_flight",
+                         [(8, 1), (8, 2), (2, 1), (8, 0), (2, 0)])
 def test_pipelined_predict_crops_equals_serial_steps(setup, batch,
                                                      max_in_flight):
     """The double-buffered pipeline against the step run chunk by chunk on

@@ -467,5 +467,5 @@ def test_create_train_state():
         assert torch.equal(v, w), k
     cfg.defrost()
     cfg.TPU.NUM_DEVICES = 4
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 4"):
         create_train_state(cfg, device="cpu")
