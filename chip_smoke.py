@@ -14,8 +14,11 @@ holds each captured step against its body:
 * the COCO path of the FPD student HRNet-W32 (256x192, 17 joints, bf16,
   batch 32, flip test on): ``Predictor.predict_crops`` ->
   ``cli.common.make_evaluate_fn`` (rescore, OKS-NMS on the card in one
-  launch of the segmented OKS-NMS kernel, results JSON, COCO AP); and
-  from full frames, ``Predictor.predict(image, boxes)``;
+  launch of the segmented OKS-NMS kernel, results JSON, COCO AP); from
+  full frames, ``Predictor.predict(image, boxes)``; over two replicas
+  (the machine has one GPU, so both on it); and from a ``.msgpack`` in
+  ``fhpe_tpu``'s ``final_state`` layout through
+  ``Predictor.from_checkpoint``;
 * FPD training of the hourglass student by the teacher (bf16, batch 32,
   Adam): ``train.create_train_state`` -> ``make_batch_preprocessor`` ->
   ``make_fpd_train_step`` (the 3x3 filter gradients through the P4
@@ -248,7 +251,20 @@ Phases; any failure raises and exits non-zero:
     resumes to a third epoch (checkpoint and Adam at step 6), then
     ``cli.test.main`` in this process on its ``final_state.pth`` gives the
     last validation's predictions (its ``pred.mat``) and PCKh Mean
-    exactly; each launch's wall time and where it went.
+    exactly; each launch's wall time and where it went;
+31. the rest of serving, W32 as in phase 8 (bf16, batch 32 per replica,
+    flip test): (a) a Predictor on ``[cuda:0, cuda:0]`` (two replicas,
+    global batch 64) and one on ``cuda:0`` serve 45 crops
+    (``predict_crops``) and a 12-box 720p frame (``predict``) bit-equal,
+    per chunk and replica 1 decode and 52 P5e launches, the decode kernel
+    against its plain version on replica 1's merged heatmaps, persons/s
+    of both in turns over 512 crops and the host µs of the storage
+    fingerprint each replica's step takes per chunk; (b) the W32 weights
+    written by ``convert.variables_from_state_dict`` and
+    ``utils/msgpack.packb`` in ``fhpe_tpu``'s ``final_state`` layout:
+    ``Predictor.from_checkpoint`` on that file serves keypoints bit-equal
+    to the Predictor built from the state_dict (the file's MB and
+    ``load_model_weights``' time printed).
 
 Phases 15, 20, 4b and 16 run right after 11, in that order; W32 serving
 (phases 8 and 10) also counts 52 P5e launches per chunk.
@@ -439,6 +455,14 @@ DDP_STEPS = 3
 DDP_CLI_EPOCHS = 2         # then a resume to a third
 DDP_CLI_TIMEOUT_S = 300    # per torchrun launch
 DDP_RUN_TAG = "chip_smoke_ddp"
+
+# phase 31, the rest of serving: W32 (phase 8's config and weights) on two
+# replicas that share the machine's one GPU against one replica, on 45 crops
+# (one chunk of the global batch 64, two of 32) and one frame of 12 boxes;
+# then from a .msgpack of fhpe_tpu's final_state layout
+REPLICA_CROPS = 45
+REPLICA_TIMED_CROPS = 512  # per rate: 8 chunks of 64, 16 of 32
+FINGERPRINT_CALLS = 200
 
 # Card peaks for the bound (NVIDIA H100 SXM data sheet, dense).
 HBM_BYTES_PER_S = 3.35e12
@@ -1002,22 +1026,27 @@ def check_outputs(phase, preds, maxvals, n, num_joints):
         raise AssertionError(f"{phase}: non-finite outputs")
 
 
-def check_kernel_path_on_chunk(phase, p, crops, centers, scales):
-    """One chunk's merged heatmaps: kernel path == plain path preds."""
+def check_kernel_path_on_chunk(phase, p, crops, centers, scales,
+                               replica=0):
+    """One chunk's merged heatmaps on one replica: kernel path == plain
+    path preds."""
     import torch
     from fhpe_tpu_torch.ops.decode import (decode_heatmaps,
                                            make_inverse_transforms)
-    b = p.batch_size
-    hm = p.merged_heatmaps(torch.from_numpy(crops[:b]).to(p.device))
+    b = p.batch_size // len(p.devices)
+    dev = p.devices[replica]
+    hm = p.merged_heatmaps(torch.from_numpy(crops[:b]).to(dev),
+                           p.models[replica])
     inv = torch.from_numpy(make_inverse_transforms(
         centers[:b], scales[:b], p.heatmap_size))
-    kp, kv = decode_heatmaps(hm, inv.to(p.device), p.post_process)
+    kp, kv = decode_heatmaps(hm, inv.to(dev), p.post_process)
     pp, pv = decode_heatmaps(hm.cpu(), inv, p.post_process)
     if not (torch.equal(kp.cpu(), pp) and torch.equal(kv.cpu(), pv)):
         raise AssertionError(f"{phase}: kernel-path preds != plain-path "
                              f"preds on one chunk's merged heatmaps")
     log(phase, f"kernel path == plain path on one chunk of {b} "
-        f"(merged heatmaps {tuple(hm.shape)})")
+        f"(merged heatmaps {tuple(hm.shape)}"
+        + (f", replica {replica} of {len(p.devices)})" if replica else ")"))
 
 
 def check_bf16_flow(phase, p, crops):
@@ -3813,6 +3842,117 @@ def phase_ddp_cli(device, totals, label) -> None:
             f"(its pred.mat)")
 
 
+# -- phase 31: replicas and fhpe_tpu's weight files ---------------------------
+
+def serve_both(p, crops, centers, scales, frame, boxes):
+    """``predict_crops`` of the crops and ``predict`` of the frame."""
+    return p.predict_crops(crops, centers, scales) + (p.predict(frame,
+                                                                boxes),)
+
+
+def serve_run(phase, p, request, device, totals):
+    """:func:`serve_both` as one main-path run: per chunk and replica one
+    decode launch and P5e's; returns the outputs."""
+    crops, _, _, _, boxes = request
+    outs, counts = main_path_run(totals, lambda: serve_both(p, *request))
+    chunks = -(-len(crops) // p.batch_size) + -(-len(boxes) // p.batch_size)
+    steps = chunks * len(p.devices)
+    want = expected(device, decode_heatmaps=steps,
+                    branch_chain_eval=chains_per_chunk(p) * steps)
+    if counts != want:
+        raise AssertionError(f"{phase}: launches {counts} for {chunks} "
+                             f"chunks on {len(p.devices)} replicas, want "
+                             f"{want}")
+    num_joints = int(p.cfg.MODEL.NUM_JOINTS)
+    check_outputs(phase, outs[0], outs[1], len(crops), num_joints)
+    if outs[2].shape != (len(boxes), num_joints, 3) or \
+            not np.isfinite(outs[2]).all():
+        raise AssertionError(f"{phase}: predict gave {outs[2].shape}")
+    return outs, counts, chunks
+
+
+def phase_replicas(device, totals, label, tmp: Path) -> None:
+    """Phase 31: ``Predictor`` over replicas and from ``fhpe_tpu``'s
+    ``.msgpack`` weights, W32 at full width (bf16, batch 32 per replica,
+    flip test)."""
+    import torch
+    from fhpe_tpu_torch.serve import Predictor
+    from fhpe_tpu_torch.utils import msgpack
+    from fhpe_tpu_torch.utils.checkpoint import load_model_weights
+    from fhpe_tpu_torch.utils.convert import variables_from_state_dict
+    from fhpe_tpu_torch.utils.graph import storage_fingerprint
+
+    w32 = serve_cfg(W32_YAML)
+    one = Predictor(w32, he_model(w32, 200), device=device)
+    two = Predictor(w32, he_model(w32, 200), device=[device, device])
+    if two.batch_size != 2 * one.batch_size or two.models[1] is two.model:
+        raise AssertionError(f"replicas: global batch {two.batch_size} for "
+                             f"{one.batch_size} per replica")
+    t0 = time.perf_counter()
+    one.warmup()
+    two.warmup()
+    log("replicas", f"warmup of 1 + 2 replicas {time.perf_counter() - t0:.2f}"
+        f" s ({len(one.steps) + len(two.steps)} serve graphs captured)")
+    frames, boxes = make_frames(1, BOXES_PER_FRAME, seed=311)
+    request = (*make_requests(w32, REPLICA_CROPS, 310), frames[0], boxes[0])
+
+    # (a) two replicas against one: each replica's rows are a chunk of 32
+    # as one replica runs it, so bit-equal
+    out_one, c_one, k_one = serve_run("replicas", one, request, device,
+                                      totals)
+    out_two, c_two, k_two = serve_run("replicas", two, request, device,
+                                      totals)
+    if not all(np.array_equal(a, b) for a, b in zip(out_one, out_two)):
+        raise AssertionError("replicas: 2 replicas != 1 replica")
+    check_kernel_path_on_chunk("replicas", two, *request[:3], replica=1)
+    log("replicas", f"{REPLICA_CROPS} crops and a frame of {len(boxes[0])} "
+        f"boxes: 2 replicas on {two.devices} (global batch "
+        f"{two.batch_size}) bit-equal to 1 (batch {one.batch_size}); "
+        f"launches 1 replica: {k_one} chunks, decode "
+        f"{c_one['decode_heatmaps']}, P5e {c_one['branch_chain_eval']}; 2 "
+        f"replicas: {k_two} chunks, decode {c_two['decode_heatmaps']}, P5e "
+        f"{c_two['branch_chain_eval']} ({chains_per_chunk(two)} per chunk "
+        f"and replica)")
+    t_crops, t_centers, t_scales = make_requests(w32, REPLICA_TIMED_CROPS,
+                                                 312)
+    rates = rates_in_turns(
+        {"one": lambda: one.predict_crops(t_crops, t_centers, t_scales),
+         "two": lambda: two.predict_crops(t_crops, t_centers, t_scales)},
+        {"one": REPLICA_TIMED_CROPS, "two": REPLICA_TIMED_CROPS}, device)
+    t0 = time.perf_counter()
+    for _ in range(FINGERPRINT_CALLS):
+        storage_fingerprint((two.models[1],))
+    fp_us = (time.perf_counter() - t0) / FINGERPRINT_CALLS * 1e6
+    log("replicas", f"persons/s of predict_crops ({REPLICA_TIMED_CROPS} "
+        f"crops, medians of 3 in turns): 1 replica "
+        f"{rates['one']:.1f}, 2 replicas on one card "
+        f"{rates['two']:.1f}; the storage fingerprint "
+        f"{fp_us:.1f} us of host per replica per chunk "
+        f"({FINGERPRINT_CALLS} calls); {label}")
+
+    # (b) fhpe_tpu's final_state layout, written by the port's writer
+    path = tmp / "final_state.msgpack"
+    variables = variables_from_state_dict(w32, one.model.state_dict())
+    path.write_bytes(msgpack.packb(variables))
+    t0 = time.perf_counter()
+    sd = load_model_weights(str(path), w32)
+    read_s = time.perf_counter() - t0
+    if sd.keys() != one.model.state_dict().keys():
+        raise AssertionError("msgpack: the state_dict's keys differ")
+    loaded = Predictor.from_checkpoint(w32, str(path), device=device)
+    loaded.warmup()
+    out_mp, c_mp, _ = serve_run("msgpack", loaded, request, device, totals)
+    if not all(np.array_equal(a, b) for a, b in zip(out_one, out_mp)):
+        raise AssertionError("msgpack: from_checkpoint(.msgpack) != the "
+                             "Predictor built from the state_dict")
+    log("msgpack", f"{path.name}: {path.stat().st_size / 1e6:.1f} MB, "
+        f"load_model_weights {read_s:.3f} s (read, unpack, map); "
+        f"Predictor.from_checkpoint serves keypoints bit-equal to the "
+        f"Predictor of the state_dict (decode {c_mp['decode_heatmaps']}, "
+        f"P5e {c_mp['branch_chain_eval']}); {label}")
+    del one, two, loaded
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3909,6 +4049,8 @@ def main() -> int:
         phase_canvas_step(device, totals, label, Path(tmp) / "mpii")
     phase_ddp_step(device, totals, label)
     phase_ddp_cli(device, totals, label)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        phase_replicas(device, totals, label, Path(tmp))
 
     for name in KERNELS:
         if totals[name] <= 0:

@@ -40,10 +40,11 @@ FPD_TB_NAMES = {"loss": "train_loss", "pose_loss": "train_pose_loss",
 
 
 def load_teacher(cfg, tcfg, device):
-    """The ``tcfg`` model with ``KD.TEACHER``'s weights on ``device``, in
-    eval mode and frozen."""
+    """The ``tcfg`` model with ``KD.TEACHER``'s weights (a ``.pth``, or
+    ``fhpe_tpu``'s ``.msgpack`` mapped by ``tcfg``) on ``device``, in eval
+    mode and frozen."""
     teacher = get_pose_net(tcfg)
-    teacher.load_state_dict(load_model_weights(cfg.KD.TEACHER))
+    teacher.load_state_dict(load_model_weights(cfg.KD.TEACHER, tcfg))
     teacher = teacher.to(device=device, dtype=param_dtype(tcfg, device))
     return teacher.eval().requires_grad_(False)
 

@@ -6,11 +6,12 @@ Counterpart of ``fhpe_tpu/cli/test.py`` (the reference's
 flip-test and dataset metrics.  Under ``torchrun`` rank 0 evaluates and
 the other ranks return None, as ``fhpe_tpu``'s process 0 does.  Any
 layout ``utils/checkpoint.py::load_model_weights`` reads loads, the
-reference's released ``.pth`` files among them.
+reference's released ``.pth`` files and ``fhpe_tpu``'s ``.msgpack`` files
+among them.
 
 Usage:
   python -m fhpe_tpu_torch.cli.test --cfg <cfg.yaml> [--device cuda|cpu] \\
-      TEST.MODEL_FILE <weights.pth>
+      TEST.MODEL_FILE <weights.pth | weights.msgpack>
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ def run(args, cfg, device):
         raise SystemExit(f"model file not found: {model_file}")
     logger.info(f"=> loading model from {model_file}")
     model = get_pose_net(cfg)
-    model.load_state_dict(load_model_weights(model_file))
+    model.load_state_dict(load_model_weights(model_file, cfg))
     model = model.to(device=device, dtype=param_dtype(cfg, device)).eval()
     logger.info(f"=> {cfg.MODEL.NAME}: {param_count(model):,} parameters "
                 f"on {device}")

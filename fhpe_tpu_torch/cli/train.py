@@ -117,9 +117,10 @@ def run_epoch(cfg, loader, step_fn, state, device, epoch, logger, writer,
 
 def warm_start(cfg, state, logger):
     """``TRAIN.CHECKPOINT``: weights only, with a fresh optimizer on them
-    (reference fpd_train.py:169-183); epoch and optimizer come back only
-    through AUTO_RESUME."""
-    state.model.load_state_dict(load_model_weights(cfg.TRAIN.CHECKPOINT))
+    (reference fpd_train.py:169-183), from a ``.pth`` or ``fhpe_tpu``'s
+    ``.msgpack``; epoch and optimizer come back only through AUTO_RESUME."""
+    weights = load_model_weights(cfg.TRAIN.CHECKPOINT, cfg)
+    state.model.load_state_dict(weights)
     state.optimizer = make_optimizer(cfg, state.model.parameters())
     state.step = 0
     logger.info(f"=> warm-started weights from {cfg.TRAIN.CHECKPOINT}")

@@ -85,7 +85,7 @@ def make_predictor(cfg_path: Path, seed: int) -> Predictor:
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model = get_pose_net(cfg)
-    return Predictor(cfg, model, device="cuda")
+    return Predictor(cfg, model, device="cuda:0")   # one replica
 
 
 def request(p: Predictor, n: int, seed: int):

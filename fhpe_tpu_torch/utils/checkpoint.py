@@ -17,7 +17,8 @@ file write on one background thread per run directory with one write in
 flight.  ``flush_pending`` joins outstanding writes; every read path calls
 it first.  :func:`load_model_weights` reads the reference's released
 ``.pth`` files too (a bare ``state_dict``, ``{"state_dict"}``,
-``{"best_state_dict"}``, ``module.``-prefixed keys).  In a process group
+``{"best_state_dict"}``, ``module.``-prefixed keys), and, given the
+model's config, ``fhpe_tpu``'s ``.msgpack`` weight files.  In a process group
 the CLIs write on rank 0 alone, and :func:`auto_resume_multihost` hands
 rank 0's checkpoint to every rank.
 """
@@ -33,6 +34,8 @@ import numpy as np
 import torch
 
 from ..parallel import broadcast_object, initialized, is_main_process
+from . import msgpack
+from .convert import state_dict_from_jax
 
 CKPT_NAME = "checkpoint.pth"
 BEST_NAME = "model_best.pth"
@@ -177,12 +180,24 @@ def load_checkpoint_file(path: str) -> Any:
         return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def load_model_weights(path: str) -> Dict[str, torch.Tensor]:
+def load_model_weights(path: str, cfg=None) -> Dict[str, torch.Tensor]:
     """A model ``state_dict`` from any of the layouts the reference and
     this module write (``fhpe_tpu/utils/torch_import.py::
     load_torch_state_dict``): a bare ``state_dict``, a checkpoint with
     ``state_dict`` or ``best_state_dict``; a ``module.`` prefix (the
-    reference's DataParallel) is dropped."""
+    reference's DataParallel) is dropped.
+
+    A ``.msgpack`` file is one of ``fhpe_tpu``'s (``final_state``,
+    ``model_best`` or a full ``checkpoint``), read by :func:`_msgpack_weights`
+    for the model ``cfg`` describes.  The extension decides: a torch pickle
+    begins with the byte 0x80, which is also a MessagePack map."""
+    if str(path).endswith(".msgpack"):
+        if cfg is None:
+            raise ValueError(
+                f"{path}: a .msgpack weight file holds fhpe_tpu's flax tree, "
+                f"and mapping it to this model's parameter names needs the "
+                f"model's config: load_model_weights(path, cfg)")
+        return _msgpack_weights(path, cfg)
     ckpt = load_checkpoint_file(path)
     if isinstance(ckpt, dict) and "state_dict" in ckpt:
         ckpt = ckpt["state_dict"]
@@ -190,6 +205,43 @@ def load_model_weights(path: str) -> Dict[str, torch.Tensor]:
         ckpt = ckpt["best_state_dict"]
     return {k[len("module."):] if k.startswith("module.") else k: v
             for k, v in ckpt.items()}
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return tree.float().numpy() if tree.dtype == torch.bfloat16 \
+        else tree.numpy()
+
+
+def _msgpack_weights(path: str, cfg) -> Dict[str, torch.Tensor]:
+    """``fhpe_tpu``'s weights (``fhpe_tpu/utils/checkpoint.py::
+    load_model_weights``: a full checkpoint's ``state.params`` and
+    ``state.batch_stats``, else ``params`` and ``batch_stats``) as the
+    ``state_dict`` of ``get_pose_net(cfg)``.
+
+    An hourglass trained with ``TPU.DEAD_BIAS_SKIP`` (the one model it
+    changes) has no bias on the convs that a BatchNorm follows.  Where
+    ``cfg``'s model has such a bias, it gets zeros, which compute the same
+    thing."""
+    from ..models import get_pose_net
+
+    flush_pending(os.path.dirname(path) or ".")
+    with open(path, "rb") as f:
+        payload = msgpack.unpackb(f.read())
+    tree = payload["state"] if "state" in payload else payload
+    sd = state_dict_from_jax(cfg, {
+        "params": _numpy_tree(tree["params"]),
+        "batch_stats": _numpy_tree(tree.get("batch_stats", {}))})
+    if cfg.MODEL.NAME != "hourglass":
+        return sd
+    with torch.device("meta"):
+        want = get_pose_net(cfg).state_dict()
+    for k, v in want.items():
+        weight = k[:-len("bias")] + "weight"
+        if k.endswith(".bias") and k not in sd and weight in sd:
+            sd[k] = torch.zeros(v.shape, dtype=sd[weight].dtype)
+    return sd
 
 
 def _load_optimizer_state(optimizer, saved: dict) -> None:

@@ -3,9 +3,11 @@
 :func:`state_dict_from_jax` is the inverse of
 ``fhpe_tpu.utils.torch_import.import_hourglass``, ``import_hrnet`` and
 ``import_pose_resnet``: it walks the same name mapping the other way, so
-one weight set drives both forwards.
+one weight set drives both forwards.  :func:`variables_from_state_dict`
+walks it back, a state_dict to ``fhpe_tpu``'s tree (what its
+``.msgpack`` weight files hold).
 :func:`adam_state_from_jax` carries optax Adam's moments over by the same
-mapping.  Both take the flax trees as numpy and need no JAX.
+mapping.  All take or give the flax trees as numpy and need no JAX.
 """
 
 from __future__ import annotations
@@ -176,9 +178,12 @@ def _layers(cfg) -> Iterator[Tuple[str, str, tuple]]:
 
 
 def _t(a) -> torch.Tensor:
-    """float32, or float64 for float64 leaves (parity runs)."""
+    """float32, or float64 for float64 leaves (parity runs), in memory of
+    its own (``torch.tensor`` of a transposed array copies element by
+    element: seconds for a full-width model)."""
     a = np.asarray(a)
-    return torch.tensor(a if a.dtype == np.float64 else a.astype(np.float32))
+    dtype = np.float64 if a.dtype == np.float64 else np.float32
+    return torch.from_numpy(np.array(a, dtype=dtype, order="C", copy=True))
 
 
 def _param_tensors(cfg, params: dict) -> Dict[str, torch.Tensor]:
@@ -224,6 +229,53 @@ def state_dict_from_jax(cfg, variables: dict) -> Dict[str, torch.Tensor]:
             sd[f"{tkey}.running_var"] = _t(s["var"])
             sd[f"{tkey}.num_batches_tracked"] = torch.tensor(0)
     return sd
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _put(tree: dict, path: Tuple[str, ...], leaf: dict) -> None:
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = leaf
+
+
+def variables_from_state_dict(cfg, state_dict) -> dict:
+    """state_dict -> flax ``{"params", "batch_stats"}`` (numpy leaves), the
+    inverse of :func:`state_dict_from_jax`.
+
+    Conv kernels OIHW -> HWIO; transposed-conv kernels (I, O, KH, KW) ->
+    (KH, KW, I, O) flipped in KH and KW; BN ``weight/bias`` -> ``scale/bias``
+    in ``params`` and ``running_mean/running_var`` -> ``mean/var`` in
+    ``batch_stats``; ``num_batches_tracked`` is dropped.  A conv without a
+    bias in the state_dict gets none in the tree.
+    """
+    params: dict = {}
+    stats: dict = {}
+    for kind, tkey, path in _layers(cfg):
+        if kind == "bn":
+            _put(params, path + ("BatchNorm_0",), {
+                "scale": _np(state_dict[f"{tkey}.weight"]),
+                "bias": _np(state_dict[f"{tkey}.bias"])})
+            _put(stats, path + ("BatchNorm_0",), {
+                "mean": _np(state_dict[f"{tkey}.running_mean"]),
+                "var": _np(state_dict[f"{tkey}.running_var"])})
+            continue
+        w = _np(state_dict[f"{tkey}.weight"])
+        if kind == "conv":
+            leaf = {"kernel": np.ascontiguousarray(np.transpose(w,
+                                                                (2, 3, 1, 0)))}
+            name = "Conv_0"
+        else:
+            leaf = {"kernel": np.ascontiguousarray(
+                np.transpose(w, (2, 3, 0, 1))[::-1, ::-1])}
+            name = "ConvTranspose_0"
+        if f"{tkey}.bias" in state_dict:
+            leaf["bias"] = _np(state_dict[f"{tkey}.bias"])
+        _put(params, path + (name,), leaf)
+    return {"params": params, "batch_stats": stats}
 
 
 def adam_state_from_jax(cfg, optimizer: torch.optim.Optimizer,

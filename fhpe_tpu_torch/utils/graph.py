@@ -19,6 +19,7 @@ that no step body copies host data to the card.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import weakref
 from dataclasses import dataclass
@@ -187,18 +188,21 @@ class CapturedStep:
             if device.type != "cuda":
                 return self.eager(owner, batch)
             capture = cuda_capture
-        key = _signature(owner, batch, device)
-        g = self._graphs.get(key)
-        if g is not None and g.fingerprint == self._fingerprint(owner):
-            for k, v in batch.items():
-                g.static[k].copy_(v, non_blocking=True)
-            g.replay()
-            _add_launches(g.launches)
-            return _fresh(g.out)
-        # a stale graph's memory goes back before the new capture
-        self._graphs.pop(key, None)
-        del g
-        return self._first_call(key, owner, batch, capture, device)
+        # a capture records on the current device, and a replay's copies
+        # and clones run there: make it the batch's
+        with current_device(device):
+            key = _signature(owner, batch, device)
+            g = self._graphs.get(key)
+            if g is not None and g.fingerprint == self._fingerprint(owner):
+                for k, v in batch.items():
+                    g.static[k].copy_(v, non_blocking=True)
+                g.replay()
+                _add_launches(g.launches)
+                return _fresh(g.out)
+            # a stale graph's memory goes back before the new capture
+            self._graphs.pop(key, None)
+            del g
+            return self._first_call(key, owner, batch, capture, device)
 
     def _first_call(self, key, owner, batch, capture, device) -> dict:
         with torch.inference_mode(False):
@@ -215,6 +219,14 @@ class CapturedStep:
                                    recorded)
         self.captures += 1
         return result
+
+
+def current_device(device):
+    """A context that makes ``device`` the current CUDA device; nothing for
+    another device."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def _on_side_stream(device, fn):

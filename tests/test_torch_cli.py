@@ -10,13 +10,16 @@ on the CPU, and its checkpoints.
 * The port alone: train -> test on the ``synthetic`` dataset, what the
   CLIs refuse, AUTO_RESUME, ``EVAL_FREQ`` / ``CKPT_FREQ``, the weight
   file layouts ``load_model_weights`` reads, the checkpoint writer, and
-  the FPD CLI with its teacher from a ``.pth``.
+  the FPD CLI with its teacher from a ``.pth``; ``fhpe_tpu``'s ``.msgpack``
+  weight files (written here by flax) as ``TEST.MODEL_FILE``,
+  ``KD.TEACHER`` and ``TRAIN.CHECKPOINT``.
 
 The FPD step itself is held against ``fhpe_tpu`` by
 ``tests/test_torch_train.py``.
 """
 
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -27,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 import yaml
+from flax import serialization
 
 from fhpe_tpu_torch.cli import fpd_train as fpd_cli
 from fhpe_tpu_torch.cli import test as test_cli
@@ -36,6 +40,7 @@ from fhpe_tpu_torch.data import make_synthetic_mpii
 from fhpe_tpu_torch.models import get_pose_net
 from fhpe_tpu_torch.train import create_train_state
 from fhpe_tpu_torch.utils import checkpoint as ck
+from fhpe_tpu_torch.utils.convert import variables_from_state_dict
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHILD = os.path.join(REPO, "tests", "epoch_loop_child.py")
@@ -252,6 +257,56 @@ def test_train_then_test_cli(tmp_path, monkeypatch):
     last, again = c["validate"][-1][2], t["validate"][0][2]
     assert perf == last[0]
     np.testing.assert_array_equal(again[2], last[2])    # all_preds
+
+
+def _weight_files(tmp_path, cfg, seed):
+    """A seeded model of ``cfg`` and its weights as a ``.pth`` and as the
+    ``.msgpack`` fhpe_tpu writes at the end of a run (flax's
+    ``{"params", "batch_stats"}``)."""
+    torch.manual_seed(seed)
+    model = get_pose_net(cfg)
+    pth = str(tmp_path / "weights.pth")
+    ck.save_weights(pth, model)
+    mp = str(tmp_path / "final_state.msgpack")
+    with open(mp, "wb") as f:
+        f.write(serialization.msgpack_serialize(
+            variables_from_state_dict(cfg, model.state_dict())))
+    return model, pth, mp
+
+
+def test_test_cli_on_msgpack(tmp_path):
+    """``cli.test`` with ``TEST.MODEL_FILE`` the ``.msgpack`` of a model
+    reproduces the run on its ``.pth``: perf and predictions exactly."""
+    cfg_path = _synthetic_cfg(tmp_path)
+    _, pth, mp = _weight_files(tmp_path, load_config(cfg_path), seed=11)
+    with _recorded(test_cli, "validate") as t:
+        perfs = [test_cli.main(["--cfg", cfg_path, "--device", "cpu",
+                                "TEST.MODEL_FILE", path])
+                 for path in (pth, mp)]
+    assert perfs[0] == perfs[1] and np.isfinite(perfs[0])
+    (_, _, a), (_, _, b) = t["validate"]
+    np.testing.assert_array_equal(a[2], b[2])               # all_preds
+
+
+@pytest.mark.parametrize("key", ["KD.TEACHER", "TRAIN.CHECKPOINT"])
+def test_msgpack_teacher_and_warm_start(tmp_path, key):
+    """``KD.TEACHER`` (``fpd_train.load_teacher``, mapped by the teacher's
+    config) and ``TRAIN.CHECKPOINT`` (``train.warm_start``) take a
+    ``.msgpack``: the model's weights exactly."""
+    cfg = load_config(_synthetic_cfg(tmp_path))
+    model, _, mp = _weight_files(tmp_path, cfg, seed=12)
+    cfg.defrost()
+    cfg.KD.TEACHER = cfg.TRAIN.CHECKPOINT = mp
+    cfg.freeze()
+    if key == "KD.TEACHER":
+        got = fpd_cli.load_teacher(cfg, cfg, torch.device("cpu"))
+    else:
+        state = create_train_state(cfg, seed=0, device="cpu")
+        got = train_cli.warm_start(cfg, state,
+                                   logging.getLogger(__name__)).model
+    for k, v in model.state_dict().items():
+        if not k.endswith("num_batches_tracked"):
+            assert torch.equal(got.state_dict()[k], v), k
 
 
 def _fpd_yamls(tmp_path, root, teacher_features=32):

@@ -69,7 +69,7 @@ def test_port_imports_no_jax():
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'fhpe_tpu', "
             "'scripts', 'fused_block', 'fused_block_kernels', "
-            "'dw_pallas_probe', 'cv2', 'PIL'))\n"
+            "'dw_pallas_probe', 'cv2', 'PIL', 'msgpack'))\n"
             "assert not bad, bad\n"
             "assert 'fhpe_tpu_torch.parallel.mesh' in names\n"
             "assert 'fhpe_tpu_torch.tools.ddp_parity' in names\n"
@@ -293,12 +293,27 @@ def test_warp_c_text_equal():
     assert native_image_jax._SOF_MARKERS == native_image._SOF_MARKERS
 
 
+def _sources_importing(*modules):
+    """(number of port sources and ``chip_smoke.py``, those of them with
+    an ``import`` of one of ``modules`` anywhere)."""
+    paths = glob.glob(os.path.join(REPO, "fhpe_tpu_torch", "**", "*.py"),
+                      recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
+    pattern = re.compile(r"^\s*(import|from)\s+(%s)\b" % "|".join(modules),
+                         re.M)
+    return len(paths), [os.path.relpath(p, REPO) for p in paths
+                        if pattern.search(open(p).read())]
+
+
 def test_port_sources_import_no_cv2_or_pil():
     """Not at import time (``test_port_imports_no_jax``) and not inside a
     function either: the card's machine may have neither."""
-    paths = glob.glob(os.path.join(REPO, "fhpe_tpu_torch", "**", "*.py"),
-                      recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
-    pattern = re.compile(r"^\s*(import|from)\s+(cv2|PIL)\b", re.M)
-    found = [os.path.relpath(p, REPO) for p in paths
-             if pattern.search(open(p).read())]
-    assert len(paths) > 50 and not found, found
+    n, found = _sources_importing("cv2", "PIL")
+    assert n > 50 and not found, found
+
+
+def test_port_sources_import_no_msgpack_or_flax():
+    """``fhpe_tpu``'s weight files are read and written by the port's own
+    ``utils/msgpack.py``: nobody has seen the ``msgpack`` package on the
+    card's machine, and flax is JAX's."""
+    n, found = _sources_importing("msgpack", "flax")
+    assert n > 50 and not found, found

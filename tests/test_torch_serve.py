@@ -7,9 +7,15 @@ decodes with the plain version of the CUDA kernel here, and runs its
 double-buffered chunk pipeline without streams or pinned memory.
 ``fhpe_tpu``'s config sets ``TPU.NATIVE_WARP``, so its ``crop`` takes the
 C warp the port's crop shares.
+
+Serving over several devices: two CPU replicas with a global batch of 8
+against ``fhpe_tpu``'s Predictor on a 2-device slice of the tests' CPU
+mesh, built by its ``from_checkpoint`` from the ``final_state.msgpack``
+that ``fhpe_tpu``'s checkpoint writer made of the same weights.
 """
 
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -18,12 +24,16 @@ import torch
 from fhpe_tpu.serve import Predictor as PredictorJax
 from fhpe_tpu.serve.predictor import \
     xywh_to_center_scale as xywh_to_center_scale_jax
+from fhpe_tpu.utils.checkpoint import FINAL_NAME as FINAL_NAME_JAX
+from fhpe_tpu.utils.checkpoint import \
+    save_final_state as save_final_state_jax
 from fhpe_tpu_torch.models import get_pose_net
 from fhpe_tpu_torch.ops import decode
 from fhpe_tpu_torch.ops.decode import make_inverse_transforms
 from fhpe_tpu_torch.ops.decode_cases import decision_margin
 from fhpe_tpu_torch.serve import Predictor
-from fhpe_tpu_torch.serve.predictor import xywh_to_center_scale
+from fhpe_tpu_torch.serve.predictor import (replica_devices,
+                                            xywh_to_center_scale)
 from fhpe_tpu_torch.utils.convert import state_dict_from_jax
 
 from test_torch_hourglass import _cfg, _jax_variables
@@ -125,14 +135,19 @@ def test_predict_crops_rejects_bad_input(setup):
 
 
 @pytest.mark.parametrize("layout", ["raw", "module", "state_dict",
-                                    "best_state_dict"])
+                                    "best_state_dict", "numpy_perf"])
 def test_from_checkpoint_layouts(setup, tmp_path, layout):
+    """Every ``.pth`` layout, the reference's checkpoint with a numpy
+    ``perf`` among them (torch's weights-only unpickler refuses that
+    scalar unless it is allowed, as ``load_model_weights`` allows it)."""
     cfg, _, port, _ = setup
     sd = port.model.state_dict()
     obj = {"raw": sd,
            "module": {"module." + k: v for k, v in sd.items()},
            "state_dict": {"state_dict": sd, "epoch": 3},
-           "best_state_dict": {"best_state_dict": sd, "perf": 0.5}}[layout]
+           "best_state_dict": {"best_state_dict": sd, "perf": 0.5},
+           "numpy_perf": {"epoch": 3, "state_dict": sd,
+                          "perf": np.float64(0.5)}}[layout]
     path = tmp_path / "model.pth"
     torch.save(obj, path)
     loaded = Predictor.from_checkpoint(cfg, str(path), batch_size=8,
@@ -141,11 +156,162 @@ def test_from_checkpoint_layouts(setup, tmp_path, layout):
         assert torch.equal(loaded.model.state_dict()[k], v), k
 
 
-def test_multi_device_serving_not_ported(setup):
+@pytest.fixture(scope="module")
+def jax_file(setup, tmp_path_factory):
+    """``fhpe_tpu``'s ``final_state.msgpack`` of the module's weights."""
+    out = tmp_path_factory.mktemp("jax_run")
+    variables = setup[1]
+    save_final_state_jax(str(out), SimpleNamespace(
+        params=variables["params"], batch_stats=variables["batch_stats"]))
+    return str(out / FINAL_NAME_JAX)
+
+
+@pytest.fixture(scope="module")
+def ref2(setup, jax_file):
+    """fhpe_tpu's Predictor over 2 devices, from its own file."""
+    return PredictorJax.from_checkpoint(setup[0], jax_file, batch_size=8,
+                                        n_devices=2)
+
+
+@pytest.fixture(scope="module")
+def port2(setup):
+    """Two CPU replicas, global batch 8, from the state_dict."""
+    cfg, variables = setup[:2]
+    return Predictor(cfg, state_dict_from_jax(cfg, variables), batch_size=8,
+                     device="cpu", n_devices=2)
+
+
+def test_two_replicas_predict_crops(setup, ref2, port2):
+    """13 crops through a global batch of 8 on two replicas (4 rows each,
+    two chunks; replica 1's second shard one crop and three rows of
+    padding): within the crops test's bars of fhpe_tpu's 2-device
+    Predictor, and bit-equal to one replica of batch 4, which runs the
+    same rows in the same batches."""
+    cfg, _, port, (crops, centers, scales) = setup
+    assert port2.devices == [torch.device("cpu")] * 2
+    assert port2.models[1] is not port2.models[0]
+    assert len(port2.steps) == 2 and port2.step is port2.steps[0]
+    preds, maxvals = port2.predict_crops(crops, centers, scales)
+    ref_preds, ref_maxvals = ref2.predict_crops(crops, centers, scales)
+    assert preds.shape == (N, 16, 2) and maxvals.shape == (N, 16)
+    np.testing.assert_allclose(preds, ref_preds, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(maxvals, ref_maxvals, rtol=0, atol=1e-4)
+
+    one = Predictor(cfg, port.model, batch_size=4, device="cpu")
+    one_preds, one_maxvals = one.predict_crops(crops, centers, scales)
+    np.testing.assert_array_equal(preds, one_preds)
+    np.testing.assert_array_equal(maxvals, one_maxvals)
+
+
+def test_two_replicas_predict(setup, ref2, port2, frame):
+    """``predict`` on a frame, two replicas against fhpe_tpu's 2-device
+    Predictor (the crops test's bars) and bit-equal to one replica of
+    batch 4."""
+    image, boxes = frame
+    got = port2.predict(image, boxes)
+    want = ref2.predict(image, boxes)
+    assert got.shape == (N, 16, 3) and got.dtype == np.float32
+    np.testing.assert_allclose(got[..., :2], want[..., :2], rtol=0,
+                               atol=1e-3)
+    np.testing.assert_allclose(got[..., 2], want[..., 2], rtol=0, atol=1e-4)
+    one = Predictor(setup[0], setup[2].model, batch_size=4, device="cpu")
+    np.testing.assert_array_equal(got, one.predict(image, boxes))
+
+
+def test_from_checkpoint_msgpack(setup, ref2, port2, jax_file):
+    """``Predictor.from_checkpoint`` on the ``.msgpack`` fhpe_tpu wrote:
+    the weights of the state_dict exactly, so the predictions of the
+    Predictor built from it bit for bit, and fhpe_tpu's own
+    ``from_checkpoint`` on the same file within the crops test's bars."""
+    cfg, _, _, (crops, centers, scales) = setup
+    loaded = Predictor.from_checkpoint(cfg, jax_file, batch_size=8,
+                                       device="cpu", n_devices=2)
+    want = port2.model.state_dict()
+    got = loaded.model.state_dict()
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+    preds, maxvals = loaded.predict_crops(crops, centers, scales)
+    p2, v2 = port2.predict_crops(crops, centers, scales)
+    np.testing.assert_array_equal(preds, p2)
+    np.testing.assert_array_equal(maxvals, v2)
+    ref_preds, ref_maxvals = ref2.predict_crops(crops, centers, scales)
+    np.testing.assert_allclose(preds, ref_preds, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(maxvals, ref_maxvals, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("max_in_flight", [0, 1, 2])
+def test_two_replicas_reuse_slots(setup, max_in_flight):
+    """Two replicas of 2 rows each (global batch 4): 13 crops take 4
+    chunks through at most 3 host slots, under fast thread switching,
+    bit-equal to one replica of batch 2 whatever the number of results
+    left waiting."""
+    cfg, _, port, (crops, centers, scales) = setup
+    two = Predictor(cfg, port.model, batch_size=4, device="cpu",
+                    n_devices=2)
+    one = Predictor(cfg, port.model, batch_size=2, device="cpu")
+    want = one.predict_crops(crops, centers, scales)
+    two.max_in_flight = max_in_flight
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        got = two.predict_crops(crops, centers, scales)
+    finally:
+        sys.setswitchinterval(interval)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_batch_must_divide_over_devices(setup):
+    """The text of fhpe_tpu's refusal."""
+    cfg, variables, port, _ = setup
+    with pytest.raises(ValueError, match="must divide") as e:
+        Predictor(cfg, port.model, batch_size=7, device="cpu", n_devices=2)
+    with pytest.raises(ValueError) as e_jax:
+        PredictorJax(cfg, variables, batch_size=7, n_devices=2)
+    assert str(e.value) == str(e_jax.value)
+
+
+@pytest.mark.parametrize("num_devices,device,n_devices,want", [
+    (-1, "cpu", None, ["cpu"]),
+    (2, "cpu", None, ["cpu", "cpu"]),
+    (-1, "cpu", 3, ["cpu"] * 3),
+    (-1, "cuda:1", None, ["cuda:1"]),
+    (3, "cuda", None, ["cuda:0", "cuda:1", "cuda:2"]),
+    (2, "cuda:1", None, ["cuda:1", "cuda:2"]),
+    (4, ["cuda:0", "cuda:0"], None, ["cuda:0", "cuda:0"]),
+])
+def test_replica_devices(num_devices, device, n_devices, want):
+    """``n_devices``, else ``TPU.NUM_DEVICES`` when > 0; a sequence means
+    exactly its devices."""
     cfg = _serve_cfg()
+    cfg.TPU.NUM_DEVICES = num_devices
+    got = replica_devices(cfg, device, n_devices)
+    assert got == [torch.device(d) for d in want]
+
+
+def test_replica_devices_refusals(monkeypatch):
+    cfg = _serve_cfg()
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(ValueError, match="no device"):
+        replica_devices(cfg, "cuda")            # every visible GPU: none
+    with pytest.raises(ValueError, match="one kind of device"):
+        replica_devices(cfg, ["cpu", "cuda:0"])
+    with pytest.raises(ValueError, match="n_devices 3"):
+        replica_devices(cfg, ["cpu", "cpu"], 3)
+
+
+def test_num_devices_default(setup):
+    """``TPU.NUM_DEVICES`` -1 on the CPU: one replica of
+    ``TEST.BATCH_SIZE_PER_GPU``; 2: two, and the global batch doubles."""
+    cfg = _serve_cfg()
+    per = int(cfg.TEST.BATCH_SIZE_PER_GPU)
+    assert int(cfg.TPU.NUM_DEVICES) == -1
+    p = Predictor(cfg, setup[2].model, device="cpu")
+    assert len(p.devices) == 1 and p.batch_size == per
     cfg.TPU.NUM_DEVICES = 2
-    with pytest.raises(NotImplementedError):
-        Predictor(cfg, setup[2].model, device="cpu")
+    p = Predictor(cfg, setup[2].model, device="cpu")
+    assert len(p.models) == 2 and p.batch_size == 2 * per
 
 
 def test_xywh_to_center_scale_matches_jax():
