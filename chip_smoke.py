@@ -39,7 +39,8 @@ holds each captured step against its body:
   their ``main(argv)``: ``cli.fpd_train`` on the hourglass pair (2
   epochs, a resume to a third, checkpoints) and ``cli.train`` on
   PoseResNet-50 COCO (one epoch to AP), each followed by ``cli.test``
-  on its ``final_state.pth``;
+  on its ``final_state.pth``; and ``cli.fpd_train`` on the HRNet pair
+  with the debug images and the model summary, then ``cli.test``;
 * data-parallel training, one process per GPU: the hourglass FPD step in
   a NCCL process group (``parallel.initialize``) with its collectives
   inside the captured graph, and ``torchrun --nproc_per_node 1 -m
@@ -264,7 +265,24 @@ Phases; any failure raises and exits non-zero:
     ``utils/msgpack.packb`` in ``fhpe_tpu``'s ``final_state`` layout:
     ``Predictor.from_checkpoint`` on that file serves keypoints bit-equal
     to the Predictor built from the state_dict (the file's MB and
-    ``load_model_weights``' time printed).
+    ``load_model_weights``' time printed);
+32. HRNet FPD through the CLIs with ``DEBUG.DEBUG`` on: ``cli.fpd_train``
+    on ``w32_fpd_student.yaml`` by ``w48_256x192_teacher.yaml`` (a ``.pth``
+    of phase 17's He-scale teacher as ``KD.TEACHER``) over phase 26's
+    synthetic COCO JPEGs (bf16, batch 32, one epoch of 2 steps,
+    ``PRINT_FREQ`` 1, every ``DEBUG.SAVE_*`` flag on): launches as
+    reckoned (per step 26 P5e, 26 P5t, 212 P4, 2 decode; per validation
+    batch 52 P5e and 3 decode; one segmented OKS-NMS per validation, 3
+    validations); every ``train_0_{i}_*`` and ``val_{i}_*`` dump decodes
+    through the image library at its grid's shape; the TensorBoard events
+    hold the grids; the Student and Teacher summaries' parameters equal
+    the CLI's models' and their FLOPs are there (the count's seconds
+    printed); then ``cli.test`` on its ``final_state.pth`` with ``DEBUG``
+    on gives the same predictions and AP and writes its ``val_{i}`` dumps
+    again; last, the W48 -> W32 FPD step captured with ``debug_outputs``
+    against the step captured without, from copies of one state on one
+    batch: equal launches, losses and parameters bit-equal where two plain
+    runs are (elsewhere within phase 27's spread).
 
 Phases 15, 20, 4b and 16 run right after 11, in that order; W32 serving
 (phases 8 and 10) also counts 52 P5e launches per chunk.
@@ -463,6 +481,19 @@ DDP_RUN_TAG = "chip_smoke_ddp"
 REPLICA_CROPS = 45
 REPLICA_TIMED_CROPS = 512  # per rate: 8 chunks of 64, 16 of 32
 FINGERPRINT_CALLS = 200
+
+# phase 32, HRNet FPD through the CLIs with the debug images and the model
+# summary: W32 by W48 (phases 17-19's pair, the teacher from a .pth of
+# their He-scale weights) over phase 26's synthetic COCO JPEGs, one epoch
+# of two steps, PRINT_FREQ 1, every DEBUG.* flag on; then cli.test on its
+# final_state.pth, DEBUG on too
+DEBUG_OPTS = ["DEBUG.DEBUG", "True", "DEBUG.SAVE_BATCH_IMAGES_GT", "True",
+              "DEBUG.SAVE_BATCH_IMAGES_PRED", "True",
+              "DEBUG.SAVE_HEATMAPS_GT", "True", "DEBUG.SAVE_HEATMAPS_PRED",
+              "True"]
+DUMPS = ("gt", "pred", "hm_gt", "hm_pred")
+SUMMARY_LINE = re.compile(r"Forward GFLOPs \(batch=1, FlopCounterMode on a "
+                          r"CPU copy, ([\d.]+) s\): ([\d.]+)")
 
 # Card peaks for the bound (NVIDIA H100 SXM data sheet, dense).
 HBM_BYTES_PER_S = 3.35e12
@@ -3953,6 +3984,244 @@ def phase_replicas(device, totals, label, tmp: Path) -> None:
     del one, two, loaded
 
 
+def summary_of(lines, title: str) -> tuple:
+    """(parameters, GFLOPs, seconds of the count) of the model summary a
+    CLI logged, the one after a ``title`` line (``Student:``,
+    ``Teacher:``) or the first when ``title`` is empty."""
+    for ln in lines:
+        if "Total Parameters:" in ln and ln.startswith(title):
+            params = int(re.search(r"Total Parameters: ([\d,]+)",
+                                   ln).group(1).replace(",", ""))
+            m = SUMMARY_LINE.search(ln)
+            if m is None:
+                raise AssertionError(f"summary {title!r} without its "
+                                     f"FLOPs: {ln[-300:]}")
+            return params, float(m.group(2)), float(m.group(1))
+    raise AssertionError(f"no model summary {title!r} logged")
+
+
+def check_dumps(phase, run_dir: Path, prefixes, shapes) -> int:
+    """Each ``{prefix}_{gt,pred,hm_gt,hm_pred}.jpg`` in ``run_dir`` decodes
+    through the image library at its grid's shape; returns their bytes."""
+    from fhpe_tpu_torch.ops import native_image
+    total = 0
+    for prefix in prefixes:
+        for kind in DUMPS:
+            path = run_dir / f"{prefix}_{kind}.jpg"
+            if not path.exists():
+                raise AssertionError(f"{phase}: no {path.name} in {run_dir}")
+            shape = native_image.imread(str(path)).shape
+            if shape != shapes[kind]:
+                raise AssertionError(f"{phase}: {path.name} decodes at "
+                                     f"{shape}, the grid is {shapes[kind]}")
+            total += path.stat().st_size
+    return total
+
+
+def phase_hrnet_cli(device, totals, label) -> None:
+    """Phase 32: ``cli.fpd_train`` on W32 by W48 (bf16, batch 32, one
+    epoch, ``PRINT_FREQ`` 1, ``DEBUG.DEBUG`` and every ``SAVE_*`` flag on)
+    over synthetic COCO JPEGs, then ``cli.test`` on its
+    ``final_state.pth``: launches, the dumps, the TensorBoard images, the
+    Student and Teacher summaries; then a debug-captured FPD step against
+    a plain-captured one from copies of one state."""
+    import importlib.util
+
+    import torch
+    from fhpe_tpu_torch.cli import fpd_train as fpd_cli
+    from fhpe_tpu_torch.cli import test as test_cli
+    from fhpe_tpu_torch.config import load_config
+    from fhpe_tpu_torch.data import make_synthetic_coco
+    from fhpe_tpu_torch.models import get_pose_net, param_count
+    from fhpe_tpu_torch.tools.train_parity import (HRNET_STUDENT_YAML,
+                                                   HRNET_TEACHER_YAML,
+                                                   hrnet_fpd_cfgs)
+    from fhpe_tpu_torch.utils import checkpoint as ck
+
+    t_phase = time.perf_counter()
+    scfg, tcfg = hrnet_fpd_cfgs()
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        root = Path(tmp)
+        make_synthetic_coco(str(root / "coco"), "train2017",
+                            LOADER_TRAIN_IMAGES, seed=0)
+        make_synthetic_coco(str(root / "coco"), COCO_SET, CLI_COCO_VALID,
+                            seed=1)
+        opts = ["OUTPUT_DIR", str(root / "out"), "LOG_DIR", str(root / "log"),
+                "DATASET.ROOT", str(root / "coco"), "DATASET.TRAIN_SET",
+                "train2017", "DATASET.TEST_SET", COCO_SET,
+                "DATASET.CACHE_ROOT", "", "TPU.COMPUTE_DTYPE", "bfloat16",
+                "TRAIN.BATCH_SIZE_PER_GPU", str(TRAIN_BATCH),
+                "TEST.BATCH_SIZE_PER_GPU", str(TRAIN_BATCH),
+                "PRINT_FREQ", "1", *DEBUG_OPTS]
+        # the CLI's configs: the student's, and the teacher file merged over
+        # it (reference fpd_train.py:128-131)
+        cli_s = load_config(str(HRNET_STUDENT_YAML), opts)
+        cli_t = cli_s.clone()
+        cli_t.defrost()
+        cli_t.merge_from_file(str(HRNET_TEACHER_YAML))
+        teacher_pth = root / "teacher.pth"
+        ck.save_weights(str(teacher_pth), hrnet_pair(scfg, tcfg)[1])
+        argv = ["--cfg", str(HRNET_STUDENT_YAML), "--tcfg",
+                str(HRNET_TEACHER_YAML), "--device", str(device), *opts,
+                "KD.TEACHER", str(teacher_pth), "TRAIN.END_EPOCH", "1"]
+        batches = math.ceil(CLI_COCO_VALID / TRAIN_BATCH)
+        steps = LOADER_TRAIN_IMAGES // TRAIN_BATCH
+
+        def want(steps, vals):
+            return expected(
+                device,
+                branch_chain_eval=HRNET_CHAINS * steps
+                + 2 * HRNET_CHAINS * batches * vals,
+                branch_chain_train=HRNET_CHAINS * steps,
+                conv3x3_wgrad=HRNET_P4_PER_STEP * steps,
+                decode_heatmaps=K1_PER_TRAIN_STEP * steps
+                + K1_PER_EVAL_BATCH * batches * vals,
+                oks_nms_segments=vals)
+
+        run = cli_run(fpd_cli, argv, totals, "make_fpd_train_step")
+        check_cli("hrnet-cli", run, want(steps, 3), 3, steps)
+        run_dir = (root / "out" / "coco" / "pose_hrnet"
+                   / f"{HRNET_STUDENT_YAML.stem}_{CLI_RUN_TAG}")
+        for name in (ck.CKPT_NAME, ck.FINAL_NAME):
+            if not (run_dir / name).exists():
+                raise AssertionError(f"hrnet-cli: no {name} in {run_dir}")
+        w, h = (int(v) for v in scfg.MODEL.IMAGE_SIZE)
+        hw, hh = (int(v) for v in scfg.MODEL.HEATMAP_SIZE)
+        joints = int(scfg.MODEL.NUM_JOINTS)
+        nrow = min(8, TRAIN_BATCH)          # vis.joints_grid's layout
+        grid = (math.ceil(TRAIN_BATCH / nrow) * (h + 2), nrow * (w + 2), 3)
+        shapes = {"gt": grid, "pred": grid,
+                  "hm_gt": (TRAIN_BATCH * hh, (joints + 1) * hw, 3),
+                  "hm_pred": (TRAIN_BATCH * hh, (joints + 1) * hw, 3)}
+        prefixes = ([f"train_0_{i}" for i in range(steps)]
+                    + [f"val_{i}" for i in range(batches)])
+        nbytes = check_dumps("hrnet-cli", run_dir, prefixes, shapes)
+        tb = root / "log" / "coco" / "pose_hrnet" / run_dir.name
+        events = sum(f.stat().st_size for f in tb.glob("events.*"))
+        if importlib.util.find_spec("tensorboardX") is None:
+            tb_text = "tensorboardX is not installed: no TensorBoard file"
+        elif events < max(shapes["hm_gt"][0] * shapes["hm_gt"][1], 1):
+            raise AssertionError(f"hrnet-cli: the TensorBoard events in {tb} "
+                                 f"hold {events} bytes: no images")
+        else:
+            tb_text = (f"TensorBoard events {events / 1e6:.2f} MB (scalars "
+                       f"and the first validation batch's 3 grids)")
+
+        # the summaries: the CLI's models' parameters, and their FLOPs
+        with torch.device("meta"):
+            n_student = param_count(get_pose_net(cli_s))
+            n_teacher = param_count(get_pose_net(cli_t))
+        s_sum = summary_of(run["lines"], "Student:")
+        t_sum = summary_of(run["lines"], "Teacher:")
+        if (s_sum[0], t_sum[0]) != (n_student, n_teacher):
+            raise AssertionError(f"hrnet-cli: summary parameters "
+                                 f"{s_sum[0]}, {t_sum[0]}; the models have "
+                                 f"{n_student}, {n_teacher}")
+        log("hrnet-cli", f"model summaries counted on CPU copies: student "
+            f"{s_sum[0]:,} parameters, {s_sum[1]} GFLOPs per image, in "
+            f"{s_sum[2]:.2f} s; teacher {t_sum[0]:,}, {t_sum[1]} GFLOPs, "
+            f"in {t_sum[2]:.2f} s (equal to the CLI's models' parameters)")
+        ap = run["vals"][-1][0]
+        log("hrnet-cli", f"{HRNET_STUDENT_YAML.name} by "
+            f"{HRNET_TEACHER_YAML.name} (a .pth of phase 17's He-scale "
+            f"teacher), DEBUG.DEBUG on, {LOADER_TRAIN_IMAGES} + "
+            f"{CLI_COCO_VALID} synthetic COCO JPEGs: {run['wall']:.2f} s for "
+            f"main(), 1 epoch of {run['steps']} steps, 3 validations, AP "
+            f"{ap:.4f}; launches " + ", ".join(
+                f"{k} {v}" for k, v in run["counts"].items() if v)
+            + f"; {len(prefixes) * len(DUMPS)} dumps ({nbytes / 1e6:.2f} MB) "
+            f"decode at their grids' shapes; {tb_text}")
+        log("hrnet-cli", cli_speeds(run["lines"]) + f"; {label}")
+
+        def mtimes():
+            return [(run_dir / f"{p}_{k}.jpg").stat().st_mtime_ns
+                    for p in prefixes[steps:] for k in DUMPS]
+
+        before = mtimes()
+        test = cli_run(test_cli, ["--cfg", str(HRNET_STUDENT_YAML),
+                                  "--device", str(device), *opts,
+                                  "TEST.MODEL_FILE",
+                                  str(run_dir / ck.FINAL_NAME)], totals)
+        check_cli("hrnet-cli test", test, want(0, 1), 1, 0)
+        verdict = same_perf("hrnet-cli test", test["vals"][0],
+                            run["vals"][-1])
+        check_dumps("hrnet-cli test", run_dir, prefixes[steps:], shapes)
+        if any(a == b for a, b in zip(before, mtimes())):
+            raise AssertionError("hrnet-cli test: the val dumps were not "
+                                 "written again")
+        if summary_of(test["lines"], "")[0] != n_student:
+            raise AssertionError("hrnet-cli test: summary parameters")
+        log("hrnet-cli", f"cli.test on final_state.pth, DEBUG.DEBUG on: AP "
+            f"{test['result']:.6f}, the last validation's {ap:.6f}: "
+            f"{verdict}; its {len(before)} val dumps written again; "
+            + cli_speeds(test["lines"]) + f"; {label}")
+    phase_debug_step(device, totals, scfg, tcfg)
+    log("hrnet-cli", f"phase 32 in {time.perf_counter() - t_phase:.1f} s; "
+        f"{label}")
+
+
+def phase_debug_step(device, totals, scfg, tcfg) -> None:
+    """Phase 32 (end): the W48 -> W32 FPD step captured with
+    ``debug_outputs`` against the same step captured without, from
+    copies of one state on one resident batch, 2 calls each (the capture
+    call, then a replay): equal launches, bit-equal losses and parameters
+    wherever a second plain run is bit-equal to the first (elsewhere within
+    phase 27's spread), and the debug outputs finite heatmaps of the
+    step's shape."""
+    from fhpe_tpu_torch.tools.train_parity import train_batch
+    from fhpe_tpu_torch.train import (create_train_state,
+                                      make_batch_preprocessor,
+                                      make_fpd_train_step)
+
+    student, teacher = hrnet_pair(scfg, tcfg)
+    teacher = teacher.to(device)
+    base = create_train_state(scfg, student, device=device)
+    batch = train_batch(scfg, TRAIN_BATCH, seed=32, device=device)
+    runs = {}
+    for tag in ("debug", "plain", "plain2"):
+        state = copy.deepcopy(base)
+        step = make_fpd_train_step(scfg, teacher, tcfg,
+                                   prepare=make_batch_preprocessor(scfg),
+                                   debug_outputs=tag == "debug")
+        metrics, counts = main_path_run(totals, lambda: [
+            step(state, batch)[1] for _ in range(2)])
+        sync(device)
+        runs[tag] = (state, metrics, counts)
+    (d_state, d_metrics, d_counts), (_, _, p_counts) = (runs["debug"],
+                                                        runs["plain"])
+    if d_counts != p_counts:
+        raise AssertionError(f"debug-step: launches {d_counts} with debug "
+                             f"outputs, {p_counts} without")
+    out, target = d_metrics[-1]["output"], d_metrics[-1]["target"]
+    hw, hh = (int(v) for v in scfg.MODEL.HEATMAP_SIZE)
+    shape = (TRAIN_BATCH, int(scfg.MODEL.NUM_JOINTS), hh, hw)
+    if (tuple(out.shape), tuple(target.shape)) != (shape, shape) or not (
+            bool(out.isfinite().all()) and bool(target.isfinite().all())):
+        raise AssertionError(f"debug-step: output {tuple(out.shape)}, "
+                             f"target {tuple(target.shape)}, want {shape}")
+
+    def grouped(tag):
+        state, metrics, _ = runs[tag]
+        groups = {"params": dict(state.model.named_parameters()),
+                  "buffers": dict(state.model.named_buffers())}
+        groups["metrics"] = {f"{k}@{i}": v for i, m in enumerate(metrics)
+                             for k, v in m.items()
+                             if k not in ("output", "target")}
+        return groups
+
+    agree = graph_agreement(grouped("debug"), grouped("plain"),
+                            grouped("plain2"))
+    log("debug-step", f"W48 -> W32 FPD step captured with debug outputs "
+        f"against without, 2 calls each from one state (bf16, batch "
+        f"{TRAIN_BATCH}): launches equal ({sum(d_counts.values())} each); "
+        + "; ".join(
+            f"{g} {n_self}/{n} tensors equal in two plain runs, the debug "
+            f"run bit-equal on {n_eq} of them" + (
+                f", the rest relative L2 {rg:.3g} against the plain runs' "
+                f"{re_:.3g}" if n_self < n else "")
+            for g, (n, n_self, n_eq, rg, re_) in agree.items()))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4051,6 +4320,7 @@ def main() -> int:
     phase_ddp_cli(device, totals, label)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         phase_replicas(device, totals, label, Path(tmp))
+    phase_hrnet_cli(device, totals, label)
 
     for name in KERNELS:
         if totals[name] <= 0:

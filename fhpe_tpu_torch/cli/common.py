@@ -10,7 +10,11 @@ alone, or one of N under ``torchrun --nproc_per_node N``
   ``cuda``), :func:`load_cfg_from_args` (a copy), :func:`resolve_device`
   (a card that is asked for and missing ends the CLI; it never goes on on
   the CPU; under ``torchrun`` the process joins its group there) and
-  :func:`check_supported` (what the port refuses);
+  :func:`check_supported` (what the port refuses before it writes
+  anything; every YAML under ``experiments/`` passes);
+* :func:`summary_text` (the model summary the CLIs log) and
+  :func:`debug_outputs` (whether the train steps return heatmaps for the
+  ``DEBUG.*`` dumps);
 * :func:`create_run_logger`: the run directory and its log on rank 0
   only (``fhpe_tpu``'s processes share one host's files the same way);
 * :func:`build_loaders`: db -> ``PoseDataSource`` -> ``BatchLoader``,
@@ -23,8 +27,11 @@ alone, or one of N under ``torchrun --nproc_per_node N``
 * :func:`device_batch`: a host batch as tensors on an explicit device;
 * :func:`validate`: the eval loop (reference function.py:189-332) with
   ``make_eval_step`` (on the card a graph captured on the first batch and
-  replayed for the rest: every batch is padded to one size), the prediction and box accumulation, the macro-PCK
-  meter and the TensorBoard scalars, then the dataset metric;
+  replayed for the rest: every batch is padded to one size), the
+  prediction and box accumulation, the macro-PCK meter and the
+  TensorBoard scalars, under ``DEBUG.DEBUG`` the ``val_{i}`` image dumps
+  every ``PRINT_FREQ`` batches and the first batch's grids in
+  TensorBoard (``utils/vis.py``), then the dataset metric;
 * :func:`make_evaluate_fn`: the COCO branch (rescore + OKS-NMS on the card
   -> results JSON -> COCO AP), the MPII branch (PCKh against
   ``gt_<TEST_SET>.mat``, host) and the ``synthetic`` branch.
@@ -44,12 +51,15 @@ import torch
 from ..config import load_config
 from ..data import BatchLoader, PoseDataSource, build_db, dataset_meta
 from ..geometry.flip import flip_pair_permutation
+from ..models.pose_resnet import deconv_padding
 from ..ops.decode import make_inverse_transforms
 from ..parallel import (backend, broadcast_object, initialize, initialized,
                         is_main_process, process_count, process_index,
                         shutdown)
 from ..train import make_batch_preprocessor, make_eval_step
 from ..utils.logger import AverageMeter, create_logger, print_name_value
+from ..utils.summary import get_model_summary
+from ..utils.vis import save_debug_images, tb_log_images
 
 
 def parse_args(description: str, teacher: bool = False, argv=None):
@@ -126,14 +136,29 @@ def create_run_logger(cfg, cfg_name: str, phase: str):
 
 
 def check_supported(cfg) -> None:
-    """Refuse what the port does not do yet, rather than skip it in
-    silence.  A ``TPU.NUM_DEVICES`` that does not fit the process group
-    is refused by ``create_train_state``."""
-    if cfg.DEBUG.DEBUG:
-        raise NotImplementedError(
-            "DEBUG.DEBUG (debug image dumps) is not ported yet (ROADMAP.md "
-            "queue A, the debug images and the summary table); pass "
-            "DEBUG.DEBUG False")
+    """Refuse, before the run directory is made, a config the port cannot
+    run as ``fhpe_tpu`` does: PoseResNet's ``NUM_DECONV_KERNELS`` 3
+    (``models/pose_resnet.py::deconv_padding``, which the model refuses
+    too).  A ``TPU.NUM_DEVICES`` that does not fit the process group is
+    refused by ``create_train_state``."""
+    if cfg.MODEL.NAME == "pose_resnet":
+        for kernel in cfg.MODEL.EXTRA.NUM_DECONV_KERNELS:
+            deconv_padding(int(kernel))
+
+
+def summary_text(model, cfg) -> str:
+    """``get_model_summary``'s table of ``model`` at ``MODEL.IMAGE_SIZE``,
+    as the CLIs log it (the count runs on a CPU copy; the model stays
+    where it is)."""
+    w, h = (int(v) for v in cfg.MODEL.IMAGE_SIZE)
+    return get_model_summary(model, (h, w))["text"]
+
+
+def debug_outputs(cfg) -> bool:
+    """Whether the train steps return their heatmaps and targets for the
+    image dumps: ``DEBUG.DEBUG`` on one process, as ``fhpe_tpu`` keeps
+    them to one process (``fhpe_tpu/cli/train.py:173``)."""
+    return bool(cfg.DEBUG.DEBUG) and process_count() == 1
 
 
 def tb_writer(tb_dir: str, logger):
@@ -251,14 +276,20 @@ def validate(cfg, model, val_loader, meta, logger, evaluate_fn=None,
     device, with no mesh, no compiled-step cache and no watchdog).
 
     With ``writer`` set, mirrors the reference's TB surface (valid_loss /
-    valid_acc scalars + the name_values dict, function.py:304-330).
+    valid_acc scalars + the name_values dict, function.py:304-330).  Under
+    ``DEBUG.DEBUG`` with an ``output_dir`` the eval step also returns its
+    heatmaps and targets, and every ``PRINT_FREQ`` batches the
+    ``val_{i}_*.jpg`` dumps are written there (function.py:286-289); the
+    first batch's grids go to ``writer`` as images.
     Returns (perf_indicator, name_values, all_preds, all_boxes, img_paths).
     """
     device = next(model.parameters()).device
     perm = flip_pair_permutation(meta["num_joints"], meta["flip_pairs"])
     prepare = (make_batch_preprocessor(cfg, meta["joints_weight"])
                if cfg.TPU.DEVICE_PREPROCESS else None)
-    eval_step = make_eval_step(cfg, flip_perm=perm, prepare=prepare)
+    debug = bool(cfg.DEBUG.DEBUG and output_dir)
+    eval_step = make_eval_step(cfg, flip_perm=perm, prepare=prepare,
+                               debug_outputs=debug)
 
     num_samples = len(val_loader.source)
     num_joints = meta["num_joints"]
@@ -297,11 +328,20 @@ def validate(cfg, model, val_loader, meta, logger, evaluate_fn=None,
         accs.update(batch_acc, max(int(has.sum()), 1))
         idx += n
 
-        if i % cfg.PRINT_FREQ == 0 and logger:
-            logger.info(
-                f"Test: [{i}/{n_batches}]\t"
-                f"Loss {losses.val:.4f} ({losses.avg:.4f})\t"
-                f"Accuracy {accs.val:.3f} ({accs.avg:.3f})")
+        if i % cfg.PRINT_FREQ == 0:
+            if logger:
+                logger.info(
+                    f"Test: [{i}/{n_batches}]\t"
+                    f"Loss {losses.val:.4f} ({losses.avg:.4f})\t"
+                    f"Accuracy {accs.val:.3f} ({accs.avg:.3f})")
+            if debug:
+                debug_images(cfg, batch, out, os.path.join(output_dir,
+                                                           f"val_{i}"))
+                if i == 0:
+                    tb_log_images(writer, "valid", cfg, batch["image"],
+                                  batch["joints"],
+                                  batch["joints_vis"][..., None],
+                                  *_heatmaps(out), global_step)
 
     has = valids_total > 0
     overall_acc = (float((hits_total[has] / valids_total[has]).mean())
@@ -334,6 +374,20 @@ def validate(cfg, model, val_loader, meta, logger, evaluate_fn=None,
             writer.add_scalars("valid", {k: float(v) for k, v in dict(nv).items()},
                                global_step)
     return perf, name_values, all_preds, all_boxes, img_paths
+
+
+def _heatmaps(out: dict):
+    """(target, output) of a debug step's result as float32 numpy."""
+    return tuple(out[k].float().cpu().numpy() for k in ("target", "output"))
+
+
+def debug_images(cfg, batch, out, prefix: str) -> None:
+    """``save_debug_images`` of a host batch and a debug step's result
+    (``"target"``, ``"output"``): ``{prefix}_gt.jpg``, ``_pred.jpg``,
+    ``_hm_gt.jpg``, ``_hm_pred.jpg`` as ``DEBUG.*`` asks."""
+    save_debug_images(cfg, batch["image"], batch["joints"],
+                      batch["joints_vis"][..., None], *_heatmaps(out),
+                      prefix)
 
 
 def make_evaluate_fn(cfg, device="cuda"):

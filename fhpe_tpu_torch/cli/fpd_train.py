@@ -6,10 +6,11 @@ Counterpart of ``fhpe_tpu/cli/fpd_train.py`` (the reference's
 teacher via ``--tcfg`` merged over it; teacher weights from
 ``KD.TEACHER`` (required — the reference's NORMAL mode crashes on an
 undefined teacher, fpd_train.py:244, and is not supported here either);
-both models validated before epoch 0 as a sanity check (on rank 0);
-per-epoch FPD step with ``loss = (1-alpha)*MSE(student, gt) +
-alpha*MSE(student, teacher)``, the teacher in eval mode in every process;
-checkpoints and AUTO_RESUME as ``cli/train.py``.
+both models' summaries logged (Student, then Teacher) and both
+validated before epoch 0 as a sanity check (on rank 0); per-epoch FPD
+step with ``loss = (1-alpha)*MSE(student, gt) + alpha*MSE(student,
+teacher)``, the teacher in eval mode in every process; checkpoints,
+AUTO_RESUME and the ``DEBUG.*`` image dumps as ``cli/train.py``.
 
 Usage:
   python -m fhpe_tpu_torch.cli.fpd_train --cfg <student.yaml> \\
@@ -22,7 +23,7 @@ from __future__ import annotations
 
 import os
 
-from ..models import get_pose_net, param_count
+from ..models import get_pose_net
 from ..parallel import is_main_process, shutdown
 from ..train import (create_train_state, make_batch_preprocessor,
                      make_fpd_train_step, param_dtype)
@@ -31,8 +32,9 @@ from ..utils.logger import save_config_yaml
 from ..utils.pretrained import load_pretrained
 from . import train as train_cli
 from .common import (build_loaders, check_supported, create_run_logger,
-                     load_cfg_from_args, make_evaluate_fn, parse_args,
-                     process_text, resolve_device, tb_writer, validate)
+                     debug_outputs, load_cfg_from_args, make_evaluate_fn,
+                     parse_args, process_text, resolve_device, summary_text,
+                     tb_writer, validate)
 
 FPD_METERS = ("loss", "pose_loss", "kd_loss")
 FPD_TB_NAMES = {"loss": "train_loss", "pose_loss": "train_pose_loss",
@@ -88,10 +90,9 @@ def run(args, cfg, device):
     state = create_train_state(cfg, seed=int(cfg.TRAIN.get("SEED", 0)),
                                device=device)
     teacher = load_teacher(cfg, tcfg, device)
-    logger.info(f"=> student {cfg.MODEL.NAME}: "
-                f"{param_count(state.model):,} parameters; teacher "
-                f"{tcfg.MODEL.NAME}: {param_count(teacher):,}, from "
-                f"{cfg.KD.TEACHER}")
+    logger.info("Student:\n" + summary_text(state.model, cfg))
+    logger.info("Teacher:\n" + summary_text(teacher, tcfg))
+    logger.info(f"=> teacher {tcfg.MODEL.NAME} from {cfg.KD.TEACHER}")
     # student ImageNet-pretrained trunk init (reference fpd_train.py:122);
     # the teacher loads KD.TEACHER instead
     load_pretrained(cfg, state.model, logger)
@@ -105,8 +106,9 @@ def run(args, cfg, device):
     try:
         prepare = (make_batch_preprocessor(cfg, meta["joints_weight"])
                    if cfg.TPU.DEVICE_PREPROCESS else None)
-        step_fn = make_fpd_train_step(cfg, teacher, teacher_cfg=tcfg,
-                                      prepare=prepare)
+        step_fn = make_fpd_train_step(
+            cfg, teacher, teacher_cfg=tcfg, prepare=prepare,
+            debug_outputs=debug_outputs(cfg))
         evaluate_fn = make_evaluate_fn(cfg, device=device)
 
         # pre-training sanity validation of both models
@@ -127,7 +129,8 @@ def run(args, cfg, device):
             nonlocal global_step
             state, global_step = train_cli.run_epoch(
                 cfg, train_loader, step_fn, state, device, epoch, logger,
-                writer, global_step, FPD_METERS, FPD_TB_NAMES)
+                writer, global_step, FPD_METERS, FPD_TB_NAMES,
+                output_dir=output_dir)
             return state
 
         def evaluate(state, epoch):

@@ -3,8 +3,11 @@
 Counterpart of ``fhpe_tpu/cli/test.py`` (the reference's
 ``tools/test.py``) on one device: load ``TEST.MODEL_FILE`` (or
 ``final_state.pth`` of the run dir), run the full validation pass with
-flip-test and dataset metrics.  Under ``torchrun`` rank 0 evaluates and
-the other ranks return None, as ``fhpe_tpu``'s process 0 does.  Any
+flip-test and dataset metrics, after the model summary
+(``utils/summary.py``); under ``DEBUG.DEBUG`` validation writes its
+``val_{i}_*.jpg`` dumps into the run directory.  Under ``torchrun`` rank
+0 evaluates and the other ranks return None, as ``fhpe_tpu``'s process 0
+does.  Any
 layout ``utils/checkpoint.py::load_model_weights`` reads loads, the
 reference's released ``.pth`` files and ``fhpe_tpu``'s ``.msgpack`` files
 among them.
@@ -18,13 +21,13 @@ from __future__ import annotations
 
 import os
 
-from ..models import get_pose_net, param_count
+from ..models import get_pose_net
 from ..parallel import is_main_process, shutdown
 from ..train import param_dtype
 from ..utils.checkpoint import FINAL_NAME, load_model_weights
 from .common import (build_loaders, check_supported, create_run_logger,
                      load_cfg_from_args, make_evaluate_fn, parse_args,
-                     process_text, resolve_device, validate)
+                     process_text, resolve_device, summary_text, validate)
 
 
 def main(argv=None):
@@ -54,8 +57,7 @@ def run(args, cfg, device):
     model = get_pose_net(cfg)
     model.load_state_dict(load_model_weights(model_file, cfg))
     model = model.to(device=device, dtype=param_dtype(cfg, device)).eval()
-    logger.info(f"=> {cfg.MODEL.NAME}: {param_count(model):,} parameters "
-                f"on {device}")
+    logger.info(summary_text(model, cfg))
 
     _, val_loader, meta = build_loaders(cfg, train=False)
     try:

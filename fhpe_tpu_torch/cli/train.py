@@ -4,8 +4,12 @@ Counterpart of ``fhpe_tpu/cli/train.py`` (the reference's
 ``tools/train.py``): config merge, run-dir logger,
 datasets/loaders, optimizer + epoch-boundary LR schedule,
 ``MODEL.PRETRAINED``, the ``TRAIN.CHECKPOINT`` warm start, AUTO_RESUME,
-epoch loop train -> validate -> checkpoint, final state dump.  In place
-of ``fhpe_tpu``'s model summary table it logs the parameter count.
+epoch loop train -> validate -> checkpoint, final state dump.  It logs the
+model summary (``utils/summary.py``: parameters, and FLOPs counted on a
+CPU copy); under ``DEBUG.DEBUG`` on one process the step returns its
+heatmaps and targets, and every ``PRINT_FREQ`` steps the
+``train_{epoch}_{i}_*.jpg`` dumps go to the run directory
+(``utils/vis.py``), as validation's ``val_{i}_*.jpg`` do.
 
 On one device, or data-parallel with one process per device under
 ``torchrun`` (the global batch ``TRAIN.BATCH_SIZE_PER_GPU`` x N, the
@@ -26,7 +30,6 @@ import time
 
 import torch
 
-from ..models import param_count
 from ..parallel import is_main_process, shutdown
 from ..train import (create_train_state, lr_for_epoch,
                      make_batch_preprocessor, make_optimizer,
@@ -37,8 +40,9 @@ from ..utils.checkpoint import (auto_resume_multihost, load_model_weights,
 from ..utils.logger import WindowedMeters, save_config_yaml
 from ..utils.pretrained import load_pretrained
 from .common import (build_loaders, check_supported, create_run_logger,
-                     device_batch, load_cfg_from_args, make_evaluate_fn,
-                     parse_args, process_text, resolve_device, tb_writer,
+                     debug_images, debug_outputs, device_batch,
+                     load_cfg_from_args, make_evaluate_fn, parse_args,
+                     process_text, resolve_device, summary_text, tb_writer,
                      validate)
 
 
@@ -75,12 +79,17 @@ class StepProfiler:
 
 
 def run_epoch(cfg, loader, step_fn, state, device, epoch, logger, writer,
-              global_step, value_keys=("loss",), tb_names=None):
+              global_step, value_keys=("loss",), tb_names=None,
+              output_dir=None):
     """One training epoch of ``step_fn(state, device_batch) -> (state,
     metrics)``: the meters of ``value_keys`` and ``acc`` drained every
     ``PRINT_FREQ`` steps (the one read of the card per window), the TB
     scalars ``tb_names`` ({metric key: scalar name}), and one line with the
-    epoch's steps, wall time and images/s.  Returns (state, global_step)."""
+    epoch's steps, wall time and images/s.  Where the metrics carry
+    ``"output"`` (``debug_outputs``), the ``PRINT_FREQ`` steps of a batch
+    with ``"image"`` also write ``train_{epoch}_{i}_*.jpg`` into
+    ``output_dir``: the only steps whose heatmaps are read.  Returns
+    (state, global_step)."""
     tb_names = tb_names or {"loss": "train_loss"}
     profiler = StepProfiler(epoch, logger)
     meters = WindowedMeters(value_keys=value_keys)
@@ -106,6 +115,9 @@ def run_epoch(cfg, loader, step_fn, state, device, epoch, logger, writer,
                 for k, name in tb_names.items():
                     writer.add_scalar(name, meters[k].val, global_step)
                 writer.add_scalar("train_acc", accs.val, global_step)
+            if output_dir and "output" in metrics and "image" in batch:
+                debug_images(cfg, batch, metrics, os.path.join(
+                    output_dir, f"train_{epoch}_{i}"))
         global_step += 1
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -214,8 +226,7 @@ def run(args, cfg, device):
 
     state = create_train_state(cfg, seed=int(cfg.TRAIN.get("SEED", 0)),
                                device=device)
-    logger.info(f"=> {cfg.MODEL.NAME}: {param_count(state.model):,} "
-                f"parameters")
+    logger.info(summary_text(state.model, cfg))
     # ImageNet-pretrained trunk init (reference get_pose_net(is_train=True)
     # -> init_weights(cfg.MODEL.PRETRAINED))
     load_pretrained(cfg, state.model, logger)
@@ -228,7 +239,8 @@ def run(args, cfg, device):
     try:
         prepare = (make_batch_preprocessor(cfg, meta["joints_weight"])
                    if cfg.TPU.DEVICE_PREPROCESS else None)
-        step_fn = make_train_step(cfg, prepare=prepare)
+        step_fn = make_train_step(cfg, prepare=prepare,
+                                  debug_outputs=debug_outputs(cfg))
         evaluate_fn = make_evaluate_fn(cfg, device=device)
         global_step = 0
 
@@ -236,7 +248,7 @@ def run(args, cfg, device):
             nonlocal global_step
             state, global_step = run_epoch(
                 cfg, train_loader, step_fn, state, device, epoch, logger,
-                writer, global_step)
+                writer, global_step, output_dir=output_dir)
             return state
 
         def evaluate(state, epoch):

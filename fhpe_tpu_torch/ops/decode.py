@@ -13,6 +13,9 @@ quarter-pixel offset:
 :func:`decode_argmax` sends a CUDA tensor to the kernel (it never falls
 back) and a CPU tensor to the plain version.  :func:`decode_heatmaps`
 then maps the result back to source-image coordinates.
+:func:`get_max_preds` is ``fhpe_tpu``'s numpy argmax, copied (pinned by
+``tests/test_torch_port_hygiene.py``): the debug images
+(``utils/vis.py``) decode on the host with it.
 """
 
 from __future__ import annotations
@@ -40,6 +43,21 @@ def get_max_preds_torch(heatmaps: torch.Tensor):
     y = torch.floor(idx.to(torch.float32) / w)
     coords = torch.stack([x, y], dim=-1)
     return coords * (maxvals > 0.0)[..., None].to(torch.float32), maxvals
+
+
+def get_max_preds(batch_heatmaps: np.ndarray):
+    """(B, J, H, W) -> preds (B, J, 2) in (x, y), maxvals (B, J, 1)."""
+    assert batch_heatmaps.ndim == 4
+    b, j, _, w = batch_heatmaps.shape
+    flat = batch_heatmaps.reshape((b, j, -1))
+    idx = np.argmax(flat, 2).reshape((b, j, 1))
+    maxvals = np.amax(flat, 2).reshape((b, j, 1))
+
+    preds = np.tile(idx, (1, 1, 2)).astype(np.float32)
+    preds[:, :, 0] = preds[:, :, 0] % w
+    preds[:, :, 1] = np.floor(preds[:, :, 1] / w)
+    preds *= np.tile(np.greater(maxvals, 0.0), (1, 1, 2)).astype(np.float32)
+    return preds, maxvals
 
 
 def quarter_offset_torch(coords: torch.Tensor, heatmaps: torch.Tensor):

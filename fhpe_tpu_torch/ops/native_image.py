@@ -19,7 +19,9 @@ the data path does to pixels goes through here:
   arithmetic; an exact halving takes INTER_AREA's 2x2 mean, as cv2 does;
   ``tests/test_torch_device_warp.py``): the letterbox canvas of
   ``TPU.DEVICE_WARP``;
-* :func:`fill_disk`: ``cv2.circle(img, center, 6, color, -1)``.
+* :func:`fill_disk`: ``cv2.circle(img, center, 6, color, -1)``, through
+  :func:`stamp`, which sets any fixed mask at an integer centre (the debug
+  images' dots, ``utils/vis.py``).
 
 The library is C++ with a plain C interface, built by g++ at first use
 into ``build/fhpe_tpu_torch/<hash>/libfhpe_image.so`` (apart from the nvcc
@@ -71,7 +73,6 @@ _i64p = ctypes.POINTER(ctypes.c_int64)
 # cv2.circle(img, c, 6, color, -1) (8-connected, not anti-aliased) fills
 # exactly these pixels of the 13 x 13 box around c (113 of them; held to
 # cv2 in tests/test_torch_image.py)
-DISK_RADIUS = 6
 DISK = np.array([[ch == "#" for ch in row] for row in (
     "......#......",
     "...#######...",
@@ -368,17 +369,25 @@ def resize(img: np.ndarray, dsize: Tuple[int, int]) -> np.ndarray:
     return out[:, :, 0] if squeeze else out
 
 
+def stamp(img: np.ndarray, mask: np.ndarray, center: Tuple[int, int],
+          color) -> None:
+    """Set the pixels of the boolean ``mask`` (odd sides, centred on the
+    integer ``center`` (x, y)) to ``color`` in place, clipped to the
+    image: a fixed shape of ``cv2.circle`` at an integer centre."""
+    x, y = int(center[0]), int(center[1])
+    ry, rx = mask.shape[0] // 2, mask.shape[1] // 2
+    h, w = img.shape[:2]
+    y0, y1 = max(y - ry, 0), min(y + ry + 1, h)
+    x0, x1 = max(x - rx, 0), min(x + rx + 1, w)
+    if y0 >= y1 or x0 >= x1:
+        return
+    img[y0:y1, x0:x1][mask[y0 - (y - ry):y1 - (y - ry),
+                           x0 - (x - rx):x1 - (x - rx)]] = color
+
+
 def fill_disk(img: np.ndarray, center: Tuple[int, int], color) -> None:
     """Paint :data:`DISK` at integer ``center`` (x, y) in place on a uint8
     image, clipped to it, ``color`` saturated to 0-255:
     ``cv2.circle(img, center, 6, color, -1)``."""
-    x, y = int(center[0]), int(center[1])
-    r = DISK_RADIUS
-    h, w = img.shape[:2]
-    y0, y1 = max(y - r, 0), min(y + r + 1, h)
-    x0, x1 = max(x - r, 0), min(x + r + 1, w)
-    if y0 >= y1 or x0 >= x1:
-        return
-    mask = DISK[y0 - (y - r):y1 - (y - r), x0 - (x - r):x1 - (x - r)]
-    img[y0:y1, x0:x1][mask] = np.clip(np.asarray(color), 0, 255
-                                      ).astype(np.uint8)
+    stamp(img, DISK, center, np.clip(np.asarray(color), 0, 255
+                                     ).astype(np.uint8))

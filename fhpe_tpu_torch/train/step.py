@@ -33,9 +33,13 @@ buffers; ``mean``: their average).  They sit inside the body, so on the
 card the graph captures them.  Without a group they do nothing.  The
 eval step has none: validation runs on rank 0 alone.  Metrics stay
 device tensors until the caller reads them, fresh ones each step (never
-the graph's own outputs).  BatchNorm keeps its running statistics as
-torch does in train mode (``fhpe_tpu``'s ``_TorchBatchNorm`` rebuilds
-those semantics).  The bodies build no tensor from host data after their
+the graph's own outputs).  With ``debug_outputs`` each step also returns
+its final heatmaps and targets, ``"output"`` and ``"target"`` (the eval
+step's output flip-merged), for the ``DEBUG.*`` image dumps
+(``utils/vis.py``), as ``fhpe_tpu``'s steps do; without it the body, and
+so the captured graph, is the one it was.  BatchNorm keeps its running
+statistics as torch does in train mode (``fhpe_tpu``'s
+``_TorchBatchNorm`` rebuilds those semantics).  The bodies build no tensor from host data after their
 first call and never read the card, so that they can be captured.
 """
 
@@ -182,6 +186,14 @@ def _metrics(losses: dict, final, target):
     return {**losses, "acc": avg, "acc_cnt": cnt, "per_joint_acc": per_joint}
 
 
+def _with_debug(outputs: dict, debug_outputs: bool, output, target) -> dict:
+    """``outputs``, with ``"output"`` and ``"target"`` when
+    ``debug_outputs``."""
+    if debug_outputs:
+        outputs.update(output=output.detach(), target=target)
+    return outputs
+
+
 def _update(state: TrainState, loss) -> None:
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
@@ -231,7 +243,8 @@ def _compiled_train_step(body, teacher=None) -> Callable:
     return step
 
 
-def make_train_step(cfg, prepare=None, bn_stats=None) -> Callable:
+def make_train_step(cfg, prepare=None, bn_stats=None,
+                    debug_outputs: bool = False) -> Callable:
     """``(state, batch) -> (state, metrics)``: one supervised step.
 
     batch: {"image" (B, 3, H, W) float or (B, H, W, 3) uint8, "target"
@@ -240,8 +253,9 @@ def make_train_step(cfg, prepare=None, bn_stats=None) -> Callable:
     batch a ``prepare`` closure (:func:`make_batch_preprocessor`) takes.
     The student runs ``train()`` under ``TPU.COMPUTE_DTYPE``.
     ``bn_stats`` (default ``TPU.BN_STATS``): how the ranks' BatchNorm
-    running statistics are reconciled.  On the card the step is a
-    captured graph (``.eager``: the body).
+    running statistics are reconciled.  ``debug_outputs``: the metrics
+    also hold ``"output"`` (the last stack's heatmaps) and ``"target"``.
+    On the card the step is a captured graph (``.eager``: the body).
     """
     use_tw = bool(cfg.LOSS.USE_TARGET_WEIGHT)
     use_ohkm = bool(cfg.LOSS.USE_OHKM)
@@ -263,13 +277,15 @@ def make_train_step(cfg, prepare=None, bn_stats=None) -> Callable:
             loss = stacked_mse_loss(stacked, batch["target"], tw)
         _update(state, loss)
         _reconcile_bn(model, bn_stats)
-        return _metrics({"loss": loss}, final, batch["target"])
+        metrics = _metrics({"loss": loss}, final, batch["target"])
+        return _with_debug(metrics, debug_outputs, final, batch["target"])
 
     return _compiled_train_step(body)
 
 
 def make_fpd_train_step(cfg, teacher, teacher_cfg=None, prepare=None,
-                        bn_stats=None) -> Callable:
+                        bn_stats=None, debug_outputs: bool = False
+                        ) -> Callable:
     """``(state, batch) -> (state, metrics)``: one FPD distillation step.
 
     ``teacher`` (an ``nn.Module`` on the state's device, frozen) runs in
@@ -278,10 +294,11 @@ def make_fpd_train_step(cfg, teacher, teacher_cfg=None, prepare=None,
     comes from ``teacher_cfg`` (the reference builds kd_pose_criterion
     from the teacher config, fpd_train.py:145-147); it defaults to
     ``cfg``.  Metrics: loss, pose_loss, kd_loss, acc, acc_cnt,
-    per_joint_acc.  ``bn_stats`` as :func:`make_train_step` (the frozen
-    teacher, in eval mode, keeps its statistics).  On the card the step,
-    the teacher's forward and the collectives included, is one captured
-    graph (``.eager``: the body).
+    per_joint_acc, and with ``debug_outputs`` the student's ``"output"``
+    and the ``"target"``.  ``bn_stats`` as :func:`make_train_step` (the
+    frozen teacher, in eval mode, keeps its statistics).  On the card the
+    step, the teacher's forward and the collectives included, is one
+    captured graph (``.eager``: the body).
     """
     tcfg = teacher_cfg or cfg
     use_tw = bool(cfg.LOSS.USE_TARGET_WEIGHT)
@@ -309,19 +326,23 @@ def make_fpd_train_step(cfg, teacher, teacher_cfg=None, prepare=None,
             use_target_weight_kd=use_tw_kd)
         _update(state, loss)
         _reconcile_bn(model, bn_stats)
-        return _metrics({"loss": loss, "pose_loss": pose, "kd_loss": kd},
-                        final, batch["target"])
+        metrics = _metrics({"loss": loss, "pose_loss": pose,
+                            "kd_loss": kd}, final, batch["target"])
+        return _with_debug(metrics, debug_outputs, final, batch["target"])
 
     return _compiled_train_step(body, teacher)
 
 
-def make_eval_step(cfg, flip_perm=None, prepare=None) -> Callable:
+def make_eval_step(cfg, flip_perm=None, prepare=None,
+                   debug_outputs: bool = False) -> Callable:
     """``(model, batch) -> outputs`` under ``inference_mode``.
 
     batch: {"image", "target", "target_weight", "inv_trans" (B, 2, 3),
     optionally "valid" (B,) with 0 on padded rows}.  outputs: {"preds"
     (B, J, 2) in source-image coordinates, "maxvals" (B, J), "loss" (),
-    "hits"/"valids" (J,)}, device tensors.  Three decode-kernel launches
+    "hits"/"valids" (J,)}, device tensors; with ``debug_outputs`` also
+    the flip-merged heatmaps ``"output"`` and the ``"target"`` (reference
+    function.py:286-289).  Three decode-kernel launches
     per batch: the decode and the two PCK argmaxes.  The model runs in
     eval mode; on the card the step is a captured graph per model and
     batch shape (``.eager``: the body).
@@ -372,8 +393,9 @@ def make_eval_step(cfg, flip_perm=None, prepare=None) -> Callable:
         preds, maxvals = decode_heatmaps(output.contiguous(),
                                          batch["inv_trans"], post_process)
         hits, valids = _pck_counts(output, batch["target"], mask)
-        return {"preds": preds, "maxvals": maxvals, "loss": loss,
-                "hits": hits, "valids": valids}
+        result = {"preds": preds, "maxvals": maxvals, "loss": loss,
+                  "hits": hits, "valids": valids}
+        return _with_debug(result, debug_outputs, output, batch["target"])
 
     captured = CapturedStep(body, lambda model: storage_fingerprint((model,)))
 

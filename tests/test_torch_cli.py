@@ -8,7 +8,8 @@ on the CPU, and its checkpoints.
   per-epoch LR, PCKh and best-checkpoint decisions, and final weights
   within the float64 Adam envelope of ``tests/test_epoch_loop_parity.py``.
 * The port alone: train -> test on the ``synthetic`` dataset, what the
-  CLIs refuse, AUTO_RESUME, ``EVAL_FREQ`` / ``CKPT_FREQ``, the weight
+  CLIs refuse (and ``DEBUG.DEBUG``'s dumps and the summary lines, which
+  replaced its refusal), every experiment YAML accepted, AUTO_RESUME, ``EVAL_FREQ`` / ``CKPT_FREQ``, the weight
   file layouts ``load_model_weights`` reads, the checkpoint writer, and
   the FPD CLI with its teacher from a ``.pth``; ``fhpe_tpu``'s ``.msgpack``
   weight files (written here by flax) as ``TEST.MODEL_FILE``,
@@ -18,9 +19,11 @@ The FPD step itself is held against ``fhpe_tpu`` by
 ``tests/test_torch_train.py``.
 """
 
+import glob
 import json
 import logging
 import os
+import re
 import subprocess
 import sys
 from contextlib import contextmanager
@@ -32,18 +35,22 @@ import torch
 import yaml
 from flax import serialization
 
+from fhpe_tpu_torch.cli import common
 from fhpe_tpu_torch.cli import fpd_train as fpd_cli
 from fhpe_tpu_torch.cli import test as test_cli
 from fhpe_tpu_torch.cli import train as train_cli
 from fhpe_tpu_torch.config import load_config
 from fhpe_tpu_torch.data import make_synthetic_mpii
-from fhpe_tpu_torch.models import get_pose_net
+from fhpe_tpu_torch.models import get_pose_net, param_count
+from fhpe_tpu_torch.ops import native_image
 from fhpe_tpu_torch.train import create_train_state
 from fhpe_tpu_torch.utils import checkpoint as ck
 from fhpe_tpu_torch.utils.convert import variables_from_state_dict
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHILD = os.path.join(REPO, "tests", "epoch_loop_child.py")
+EXPERIMENTS = sorted(os.path.relpath(p, REPO) for p in glob.glob(
+    os.path.join(REPO, "experiments", "**", "*.yaml"), recursive=True))
 HG = {"NAME": "hourglass", "NUM_JOINTS": 16, "IMAGE_SIZE": [64, 64],
       "HEATMAP_SIZE": [16, 16], "SIGMA": 2, "PRETRAINED": "",
       "INIT_WEIGHTS": False, "TARGET_TYPE": "gaussian",
@@ -375,19 +382,73 @@ REFUSALS = {
                         SystemExit, "model file not found"),
     "train_checkpoint": (train_cli, ["TRAIN.CHECKPOINT", "nope.pth"],
                          SystemExit, "TRAIN.CHECKPOINT not found"),
-    "train_debug": (train_cli, ["DEBUG.DEBUG", "True"],
-                    NotImplementedError, "DEBUG.DEBUG False"),
-    "test_debug": (test_cli, ["DEBUG.DEBUG", "True"],
-                   NotImplementedError, "DEBUG.DEBUG False"),
     "fpd_train_type": (fpd_cli, ["KD.TRAIN_TYPE", "NORMAL"], SystemExit,
                        "KD.TRAIN_TYPE must be 'FPD'"),
     "fpd_teacher": (fpd_cli, ["KD.TEACHER", "nope.pth"], SystemExit,
                     "KD.TEACHER checkpoint not found"),
 }
+# DEBUG.DEBUG was refused until the debug images were ported; these cases
+# now run the CLI with it on (_debug_run)
+DEBUG_RUNS = {"train_debug": train_cli, "test_debug": test_cli}
+DUMPS = ("gt", "pred", "hm_gt", "hm_pred")
 
 
-@pytest.mark.parametrize("case", sorted(REFUSALS))
-def test_cli_refusals(tmp_path, case):
+def _debug_run(tmp_path, caplog, module):
+    """The tiny synthetic run with every ``DEBUG.*`` flag on and
+    ``PRINT_FREQ`` 1: the ``train_0_{i}`` dumps of both steps (train) and
+    the ``val_{i}`` dumps of every validation batch, each decoding at its
+    grid's shape (4 samples of 64x64 in one row; 16 joints of 16x16
+    heatmaps), the TensorBoard images of train's validation, and the
+    summary lines: the model's parameters and its FLOPs."""
+    cfg_path = _synthetic_cfg(tmp_path, PRINT_FREQ=1, DEBUG={
+        "DEBUG": True, "SAVE_BATCH_IMAGES_GT": True,
+        "SAVE_BATCH_IMAGES_PRED": True, "SAVE_HEATMAPS_GT": True,
+        "SAVE_HEATMAPS_PRED": True})
+    cfg = load_config(cfg_path)
+    argv = ["--cfg", cfg_path, "--device", "cpu"]
+    if module is test_cli:
+        torch.manual_seed(3)
+        ck.save_weights(str(tmp_path / "w.pth"), get_pose_net(cfg))
+        argv += ["TEST.MODEL_FILE", str(tmp_path / "w.pth")]
+    with caplog.at_level(logging.INFO), _recorded(
+            common, "tb_log_images") as tb:
+        module.main(argv)
+    run = _run_dir(tmp_path)
+    # the first batch of the validation that has a writer (train's, after
+    # its epoch) goes to TensorBoard as 3 images
+    writers = [a[0] for a, _, _ in tb["tb_log_images"] if a[0] is not None]
+    if module is train_cli:
+        assert len(writers) == 1
+        (events,) = (tmp_path / "log").rglob("events.*")
+        assert events.stat().st_size > 3 * 16 * 272
+    else:
+        assert not writers
+    files = sorted(f for f in os.listdir(run) if f.endswith(".jpg"))
+    prefixes = sorted({re.match(r"(.*?)_(hm_gt|hm_pred|gt|pred)\.jpg$",
+                                f).group(1) for f in files})
+    vals = [p for p in prefixes if p.startswith("val_")]
+    trains = ["train_0_0", "train_0_1"] if module is train_cli else []
+    assert vals and prefixes == sorted(trains + vals), files
+    assert files == sorted(f"{p}_{s}.jpg" for p in prefixes for s in DUMPS)
+    shapes = {"gt": (66, 4 * 66, 3), "pred": (66, 4 * 66, 3),
+              "hm_gt": (4 * 16, 17 * 16, 3), "hm_pred": (4 * 16, 17 * 16, 3)}
+    for p in prefixes:
+        for s in DUMPS:
+            assert native_image.imread(str(run / f"{p}_{s}.jpg")).shape \
+                == shapes[s], (p, s)
+    n = param_count(get_pose_net(cfg))
+    assert f"Total Parameters: {n:,}" in caplog.text
+    assert "Forward GFLOPs (batch=1, FlopCounterMode on a CPU copy" in \
+        caplog.text
+
+
+@pytest.mark.parametrize("case", sorted([*REFUSALS, *DEBUG_RUNS]))
+def test_cli_refusals(tmp_path, caplog, case):
+    """What the CLIs refuse, with its message; and ``DEBUG.DEBUG``, which
+    they refused before the debug images were ported and now run."""
+    if case in DEBUG_RUNS:
+        _debug_run(tmp_path, caplog, DEBUG_RUNS[case])
+        return
     module, opts, exc, match = REFUSALS[case]
     scfg, tcfg = _fpd_yamls(tmp_path, str(tmp_path / "none"))
     teacher = str(tmp_path / "t.pth")
@@ -398,6 +459,22 @@ def test_cli_refusals(tmp_path, case):
                 "KD.TEACHER", teacher]
     with pytest.raises(exc, match=match):
         module.main(argv + opts)
+
+
+@pytest.mark.parametrize("path", EXPERIMENTS)
+def test_experiment_yaml_accepted(path):
+    """Every YAML under ``experiments/`` as shipped (54 of the 65 set
+    ``DEBUG.DEBUG``) passes the port's ``load_config`` and
+    ``check_supported``."""
+    common.check_supported(load_config(os.path.join(REPO, path)))
+
+
+def test_check_supported_refuses_deconv_kernel_3():
+    cfg = load_config(os.path.join(
+        REPO, "experiments/coco/resnet/res50_256x192.yaml"),
+        ["MODEL.EXTRA.NUM_DECONV_KERNELS", "[4,3,4]"])
+    with pytest.raises(NotImplementedError, match="NUM_DECONV_KERNELS 3"):
+        common.check_supported(cfg)
 
 
 @pytest.mark.parametrize("module", [train_cli, test_cli, fpd_cli])

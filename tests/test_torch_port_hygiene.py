@@ -26,6 +26,7 @@ from fhpe_tpu.eval import coco_eval as coco_eval_jax
 from fhpe_tpu.geometry import affine as affine_jax
 from fhpe_tpu.geometry import flip as flip_jax
 from fhpe_tpu.geometry import targets as targets_jax
+from fhpe_tpu.ops import decode as decode_jax
 from fhpe_tpu.ops import native_image as native_image_jax
 from fhpe_tpu.ops import nms as nms_jax
 from fhpe_tpu.train import state as state_jax
@@ -39,7 +40,7 @@ from fhpe_tpu_torch.cli import common
 from fhpe_tpu_torch.data import coco, dataset_meta, filters, loader, mpii
 from fhpe_tpu_torch.eval import coco_eval
 from fhpe_tpu_torch.geometry import affine, flip, targets
-from fhpe_tpu_torch.ops import native_image, nms
+from fhpe_tpu_torch.ops import decode, native_image, nms
 from fhpe_tpu_torch.train import state
 from fhpe_tpu_torch.utils import logger, pretrained, zipreader
 
@@ -73,6 +74,8 @@ def test_port_imports_no_jax():
             "assert not bad, bad\n"
             "assert 'fhpe_tpu_torch.parallel.mesh' in names\n"
             "assert 'fhpe_tpu_torch.tools.ddp_parity' in names\n"
+            "assert 'fhpe_tpu_torch.utils.vis' in names\n"
+            "assert 'fhpe_tpu_torch.utils.summary' in names\n"
             "print(len(names))\n")
     env = dict(os.environ, FHPE_PLATFORM="cpu")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -81,8 +84,9 @@ def test_port_imports_no_jax():
     # every module of the port, the CLI slice's cli/train.py,
     # cli/fpd_train.py, cli/test.py and utils/{checkpoint,logger,
     # pretrained}.py among them, and the data-parallel slice's
-    # parallel/{__init__,mesh}.py and tools/ddp_parity.py
-    assert int(proc.stdout.split()[-1]) >= 65, proc.stdout
+    # parallel/{__init__,mesh}.py and tools/ddp_parity.py, and the last
+    # module slice's utils/{vis,summary}.py
+    assert int(proc.stdout.split()[-1]) >= 67, proc.stdout
 
 
 @pytest.mark.parametrize("path", EXPERIMENTS)
@@ -271,6 +275,8 @@ CLI_COPIES = {
                           node_jax.CfgNode.dump_yaml),
     "filter_pretrained_layers": (pretrained.filter_pretrained_layers,
                                  torch_import_jax.filter_pretrained_layers),
+    # the debug images' host argmax (utils/vis.py)
+    "decode.get_max_preds": (decode.get_max_preds, decode_jax.get_max_preds),
 }
 
 

@@ -1,6 +1,9 @@
 """The port's training path against fhpe_tpu's on the CPU: losses, the
 LR schedule, device preprocessing (targets), one float32 FPD step, one
-OHKM + SGD-nesterov step, the eval step, and train-mode BatchNorm.
+OHKM + SGD-nesterov step, the eval step, and train-mode BatchNorm.  The
+steps run with ``debug_outputs``: their heatmaps and targets against
+``fhpe_tpu``'s, and everything else against the same step without the
+flag, bit for bit.
 
 Tiny hourglasses (student 2 stacks x 16 features, teacher 2 x 32, 64x64
 input, 16 MPII joints), the JAX side on a 1-device mesh; inputs and
@@ -297,6 +300,20 @@ def _check_adam(cfg_t, state_t, state_j, lr):
         assert live.any(), name
 
 
+def _same_state(a, b):
+    """Two train states bit-equal: parameters, buffers, optimizer state."""
+    for (k, v), w in zip(a.model.state_dict().items(),
+                         b.model.state_dict().values()):
+        assert torch.equal(v, w), k
+    sa, sb = a.optimizer.state_dict(), b.optimizer.state_dict()
+    assert sa["state"].keys() == sb["state"].keys()
+    for i, st in sa["state"].items():
+        for key, v in st.items():
+            assert torch.equal(torch.as_tensor(v),
+                               torch.as_tensor(sb["state"][i][key])), (i, key)
+    assert a.step == b.step
+
+
 def test_fpd_step_matches_jax(mesh, x64):
     """One float64 FPD step (Adam, MSE, KD alpha 0.5) from the same
     weights and batch: loss, pose, KD, acc and per-joint acc,
@@ -332,9 +349,22 @@ def test_fpd_step_matches_jax(mesh, x64):
     state_t = create_train_state(
         cfg_t, _port_model(cfg_t, svars, torch.float64), device="cpu")
     teacher = _port_model(tcfg_t, tvars, torch.float64)
-    step_t = make_fpd_train_step(cfg_t, teacher, tcfg_t)
+    step_t = make_fpd_train_step(cfg_t, teacher, tcfg_t, debug_outputs=True)
     state_t, m_t = step_t(state_t, _nchw_batch(batch))
     assert state_t.step == int(state_j.step) == 1
+    # debug_outputs: the student's last heatmaps and the targets, as
+    # fhpe_tpu's; and the state the step without them leaves
+    _held(m_t["output"], torch.from_numpy(_nchw(m_j["output"]).copy()),
+          X64_RTOL, "output")
+    np.testing.assert_array_equal(m_t["target"].numpy(),
+                                  _nchw(m_j["target"]))
+    plain = create_train_state(
+        cfg_t, _port_model(cfg_t, svars, torch.float64), device="cpu")
+    plain, m_p = make_fpd_train_step(cfg_t, teacher, tcfg_t)(
+        plain, _nchw_batch(batch))
+    _same_state(state_t, plain)
+    assert m_p.keys() == m_t.keys() - {"output", "target"}
+    assert all(torch.equal(m_p[k], m_t[k]) for k in m_p)
 
     for key in ("loss", "pose_loss", "kd_loss"):
         np.testing.assert_allclose(m_t[key].item(), float(m_j[key]),
@@ -369,20 +399,32 @@ def test_ohkm_sgd_nesterov_step_matches_jax(mesh, x64):
              "target_weight": (rng.rand(B, J) > 0.2).astype(np.float32)}
 
     smodel_j, state_j = _jax_state(cfg_j, svars, jnp.float64)
-    step_j = step_jax.make_train_step(smodel_j, cfg_j, mesh, True)
-    state_t = create_train_state(
+    step_j = step_jax.make_train_step(smodel_j, cfg_j, mesh, True,
+                                      debug_outputs=True)
+    state_t, plain = (create_train_state(
         cfg_t, _port_model(cfg_t, svars, torch.float64), device="cpu")
-    step_t = make_train_step(cfg_t)
+        for _ in range(2))
+    step_t = make_train_step(cfg_t, debug_outputs=True)
+    step_p = make_train_step(cfg_t)
     batch_t = _nchw_batch(batch)
     for epoch in (0, 130):
         lr = lr_for_epoch(cfg_t, epoch)
         state_j = state_jax.set_lr(state_j, lr)
         set_lr(state_t, lr)
+        set_lr(plain, lr)
         state_j, m_j = step_j(state_j, shard_batch(
             mesh, {k: jnp.asarray(v) for k, v in batch.items()}))
         state_t, m_t = step_t(state_t, batch_t)
+        plain, m_p = step_p(plain, batch_t)
         np.testing.assert_allclose(m_t["loss"].item(), float(m_j["loss"]),
                                    rtol=X64_RTOL)
+        # debug_outputs: the heatmaps and targets, as fhpe_tpu's
+        _held(m_t["output"], torch.from_numpy(_nchw(m_j["output"]).copy()),
+              X64_RTOL, f"output at epoch {epoch}")
+        np.testing.assert_array_equal(m_t["target"].numpy(),
+                                      _nchw(m_j["target"]))
+        assert torch.equal(m_p["loss"], m_t["loss"])
+    _same_state(state_t, plain)
     assert state_t.optimizer.param_groups[0]["lr"] == pytest.approx(1e-4)
     ref = _torch_sd(cfg_t, state_j.params, state_j.batch_stats)
     for name, p in state_t.model.named_parameters():
@@ -415,9 +457,20 @@ def test_eval_step_matches_jax(mesh):
     model = _port_model(cfg_t, variables)
     batch_t = dict(_to_torch(raw), inv_trans=torch.from_numpy(inv),
                    valid=torch.from_numpy(valid))
-    out_t = make_eval_step(cfg_t, perm,
+    out_t = make_eval_step(cfg_t, perm, prepare=make_batch_preprocessor(
+        cfg_t), debug_outputs=True)(model, batch_t)
+    # debug_outputs: the flip-merged heatmaps and the targets (the two
+    # preprocessors' targets differ by float32 ulps), and the rest as
+    # without them
+    np.testing.assert_allclose(out_t["output"].numpy(),
+                               _nchw(out_j["output"]), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(out_t["target"].numpy(),
+                               _nchw(out_j["target"]), rtol=0, atol=1e-6)
+    plain = make_eval_step(cfg_t, perm,
                            prepare=make_batch_preprocessor(cfg_t))(model,
                                                                    batch_t)
+    assert plain.keys() == out_t.keys() - {"output", "target"}
+    assert all(torch.equal(plain[k], out_t[k]) for k in plain)
     # the decode decides by argmax and neighbour signs: no near-ties
     assert decision_margin(_nchw(out_j["output"])).min() > 1e-4
     np.testing.assert_allclose(out_t["preds"].numpy(),
