@@ -282,7 +282,28 @@ Phases; any failure raises and exits non-zero:
     again; last, the W48 -> W32 FPD step captured with ``debug_outputs``
     against the step captured without, from copies of one state on one
     batch: equal launches, losses and parameters bit-equal where two plain
-    runs are (elsewhere within phase 27's spread).
+    runs are (elsewhere within phase 27's spread);
+33. the stall watchdog and AUTO_RESUME on phase 25's pair and settings
+    over phase 14b's synthetic MPII JPEGs (written again): (a) ``torchrun
+    --standalone --nproc_per_node 1 --max-restarts 1`` runs a worker script
+    that this script writes under ``build/``, which runs ``cli.fpd_train`` (2
+    epochs of 2 steps, ``AUTO_RESUME``, a pinned ``FHPE_RUN_TAG``,
+    ``TPU.STALL_TIMEOUT_S 10``); in attempt 0 it enqueues a 45 s device
+    spin (``torch.cuda._sleep``) on the step's stream after epoch 1's
+    first step: attempt 0 exits 86 within timeout + poll + callback budget
+    of its last beat, its log has the ``STALL WATCHDOG`` line, its stderr
+    the thread dump with the main thread in a CUDA wait; attempt 1 finds
+    epoch 1's ``checkpoint.pth`` whole, logs ``auto-resumed from epoch 1``
+    with that checkpoint's parameter sum, trains epoch 1 and writes
+    ``final_state.pth``; ``cli.test`` in this process reproduces its last
+    validation; the seconds from the last beat to the exit, from the exit
+    to the card answering attempt 1, and the restart's wall time; (b) that
+    epoch-1 state written by ``convert.checkpoint_tree_from_state`` and
+    ``utils/msgpack.packb`` as ``fhpe_tpu``'s ``checkpoint.msgpack`` (the
+    weights, BN statistics, Adam's moments and count, epoch 1, perf):
+    AUTO_RESUME restores it bit-equal (float32), ``cli.fpd_train``
+    resumes from it in this process, trains epoch 1 and writes
+    ``checkpoint.pth`` beside it, which a second resume reads.
 
 Phases 15, 20, 4b and 16 run right after 11, in that order; W32 serving
 (phases 8 and 10) also counts 52 P5e launches per chunk.
@@ -494,6 +515,18 @@ DEBUG_OPTS = ["DEBUG.DEBUG", "True", "DEBUG.SAVE_BATCH_IMAGES_GT", "True",
 DUMPS = ("gt", "pred", "hm_gt", "hm_pred")
 SUMMARY_LINE = re.compile(r"Forward GFLOPs \(batch=1, FlopCounterMode on a "
                           r"CPU copy, ([\d.]+) s\): ([\d.]+)")
+
+# phase 33, the stall watchdog and AUTO_RESUME: phase 25's pair and
+# settings under torchrun --max-restarts 1 with TPU.STALL_TIMEOUT_S; attempt
+# 0 gets a device spin of STALL_SPIN_S seconds in epoch 1; then the
+# epoch-1 checkpoint written as fhpe_tpu's checkpoint.msgpack and resumed
+STALL_TIMEOUT_S = 10
+STALL_SPIN_S = 45.0
+STALL_RUN_TAG = "chip_smoke_stall"
+STALL_LAUNCH_TIMEOUT_S = 300
+# where a stalled host may wait on the card: a window read, the upload of
+# the next batch, the epoch's synchronize
+CUDA_WAITS = ("drain", "device_batch", "synchronize")
 
 # Card peaks for the bound (NVIDIA H100 SXM data sheet, dense).
 HBM_BYTES_PER_S = 3.35e12
@@ -3720,13 +3753,15 @@ def phase_ddp_step(device, totals, label) -> None:
         raise AssertionError("ddp-step: the process group outlived shutdown")
 
 
-def run_process_group(cmd, log_path: Path, timeout: float) -> float:
-    """``cmd`` from the repository root in a session of its own, its output
-    into ``log_path``; on a timeout the whole session is killed.  Raises on
-    a non-zero exit with the log's tail.  Returns the wall seconds."""
+def run_process_group(cmd, log_path: Path, timeout: float,
+                      tag: str = DDP_RUN_TAG) -> float:
+    """``cmd`` from the repository root in a session of its own, with
+    ``FHPE_RUN_TAG`` ``tag``, its output into ``log_path``; on a timeout
+    the whole session is killed.  Raises on a non-zero exit with the log's
+    tail.  Returns the wall seconds."""
     import signal
     import subprocess
-    env = dict(os.environ, FHPE_RUN_TAG=DDP_RUN_TAG)
+    env = dict(os.environ, FHPE_RUN_TAG=tag)
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
     t0 = time.perf_counter()
@@ -4222,6 +4257,375 @@ def phase_debug_step(device, totals, scfg, tcfg) -> None:
             for g, (n, n_self, n_eq, rg, re_) in agree.items()))
 
 
+# -- phase 33: the stall watchdog and AUTO_RESUME -----------------------------
+
+STALL_WORKER = """\
+\"\"\"chip_smoke.py phase 33's torchrun worker: cli.fpd_train with the stall
+watchdog; in attempt 0 a device spin after epoch 1's first step.
+
+Usage: stall_worker.py RECORD_DIR RUN_DIR SPIN_S CLI_ARGV...  Writes
+RECORD_DIR/attempt{N}.json: the times of the start, of the card's first
+answer, of the last beat and of the exit (by wrapping the watchdog's beat
+and os._exit), and in attempt 1 the checkpoint attempt 0 left (copied to
+RECORD_DIR/checkpoint_epoch1.pth) and the kernel launches.
+\"\"\"
+import json
+import os
+import shutil
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+from fhpe_tpu_torch.cli import fpd_train
+from fhpe_tpu_torch.utils import checkpoint as ck
+from fhpe_tpu_torch.utils import watchdog
+from fhpe_tpu_torch.utils.graph import launch_counters
+
+RECORD, RUN_DIR, SPIN_S = Path(sys.argv[1]), Path(sys.argv[2]), float(
+    sys.argv[3])
+ATTEMPT = int(os.environ["TORCHELASTIC_RESTART_COUNT"])
+BUFFERS = ("running_mean", "running_var", "num_batches_tracked")
+rec = {"attempt": ATTEMPT, "start": time.time()}
+
+
+def save():
+    (RECORD / f"attempt{ATTEMPT}.json").write_text(json.dumps(rec))
+
+
+beat = watchdog.StallWatchdog.beat
+
+
+def timed_beat(self):
+    rec["last_beat"] = time.time()
+    beat(self)
+
+
+real_exit = os._exit
+
+
+def timed_exit(code):
+    rec["exit"], rec["code"] = time.time(), code
+    save()
+    real_exit(code)
+
+
+watchdog.StallWatchdog.beat = timed_beat
+os._exit = timed_exit
+# a CPU rehearsal (--device cpu) blocks the host where the card spins
+ON_CARD = sys.argv[sys.argv.index("--device") + 1] != "cpu"
+if ON_CARD:
+    torch.zeros(1, device="cuda").sum().item()
+rec["card_ready"] = time.time()
+
+if ATTEMPT == 0:
+    rate = 0.0
+    if ON_CARD:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        torch.cuda._sleep(100_000_000)
+        end.record()
+        end.synchronize()
+        rate = 1e8 / (start.elapsed_time(end) / 1e3)
+    make = fpd_train.make_fpd_train_step
+
+    def spinning(*a, **k):
+        step, calls = make(*a, **k), [0]
+
+        def run(state, batch):
+            out = step(state, batch)
+            calls[0] += 1
+            if calls[0] == 3:       # epoch 1's first step
+                rec["spin_enqueued"] = time.time()
+                rec["spin_cycles"] = int(SPIN_S * rate)
+                if ON_CARD:
+                    torch.cuda._sleep(rec["spin_cycles"])
+                else:
+                    time.sleep(SPIN_S)
+            return out
+        return run
+
+    fpd_train.make_fpd_train_step = spinning
+else:
+    saved = ck.load_checkpoint_file(str(RUN_DIR / ck.CKPT_NAME))
+    sd = saved["state_dict"]
+    rec["ckpt"] = {
+        "keys": sorted(saved), "epoch": saved["epoch"],
+        "step": saved["step"], "perf": saved["perf"], "tensors": len(sd),
+        "adam_steps": sorted({float(st["step"]) for st in
+                              saved["optimizer"]["state"].values()}),
+        "param_sum": repr(sum(float(v.double().sum()) for k, v in sd.items()
+                              if not k.endswith(BUFFERS)))}
+    shutil.copy(RUN_DIR / ck.CKPT_NAME, RECORD / "checkpoint_epoch1.pth")
+save()
+fpd_train.main(sys.argv[4:])
+rec["end"] = time.time()
+rec["launches"] = {name: getattr(m, attr)
+                   for name, (m, attr) in launch_counters().items()}
+save()
+"""
+
+
+def thread_dump(text: str) -> list:
+    """The main thread's frames in a ``faulthandler`` dump, innermost
+    first, as (file, function): the thread whose outermost frame is the
+    script's ``<module>``."""
+    blocks, cur = [], None
+    for line in text.splitlines():
+        if re.match(r"^(Current thread|Thread) 0x[0-9a-f]+ \(most recent "
+                    r"call first\):", line):
+            cur = []
+            blocks.append(cur)
+        elif cur is not None:
+            m = re.match(r'^\s+File "(.+)", line \d+ in (\S+)', line)
+            if m:
+                cur.append(m.groups())
+            elif line.strip():
+                cur = None
+    main = [b for b in blocks if b and b[-1][1] == "<module>"]
+    return main[-1] if main else []
+
+
+def log_times(path: Path) -> list:
+    """(epoch seconds, message) of each line of a run's ``running.log``."""
+    out = []
+    for line in path.read_text().splitlines():
+        m = re.match(r"^(\d{4}-\d\d-\d\d \S+) (.*)$", line)
+        if m:
+            out.append((datetime.datetime.strptime(
+                m.group(1), "%Y-%m-%d %H:%M:%S,%f").timestamp(), m.group(2)))
+    return out
+
+
+def phase_stall_restart(device, totals, label) -> None:
+    """Phase 33 (see the module docstring): (a) a stalled FPD run through
+    torchrun's restart, (b) AUTO_RESUME from ``fhpe_tpu``'s
+    ``checkpoint.msgpack``."""
+    import torch
+    from scipy.io import loadmat
+    from fhpe_tpu_torch.cli import fpd_train as fpd_cli
+    from fhpe_tpu_torch.cli import test as test_cli
+    from fhpe_tpu_torch.config import load_config
+    from fhpe_tpu_torch.tools.train_parity import STUDENT_YAML as FPD_YAML
+    from fhpe_tpu_torch.train import create_train_state
+    from fhpe_tpu_torch.utils import checkpoint as ck
+    from fhpe_tpu_torch.utils import msgpack
+    from fhpe_tpu_torch.utils.convert import checkpoint_tree_from_state
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        root = Path(tmp)
+        mpii, record = root / "mpii", root / "record"
+        record.mkdir()
+        opts = ["OUTPUT_DIR", str(root / "out"), "LOG_DIR", str(root / "log"),
+                "DATASET.ROOT", str(mpii), "DATASET.CACHE_ROOT", "",
+                "TPU.COMPUTE_DTYPE", "bfloat16", "TPU.DEAD_BIAS_SKIP", "True",
+                "TRAIN.BATCH_SIZE_PER_GPU", str(TRAIN_BATCH),
+                "PRINT_FREQ", "1", "AUTO_RESUME", "True",
+                "TPU.STALL_TIMEOUT_S", str(STALL_TIMEOUT_S)]
+        scfg = load_config(str(FPD_YAML), opts)
+        side = int(scfg.MODEL.IMAGE_SIZE[0])
+        write_mpii_sets(mpii, (side, side))
+        tcfg = scfg.clone()
+        tcfg.defrost()
+        tcfg.merge_from_file(str(TEACHER_YAML))
+        teacher_pth = root / "teacher.pth"
+        ck.save_weights(str(teacher_pth), seeded_model(tcfg, 100))
+        argv = ["--cfg", str(FPD_YAML), "--tcfg", str(TEACHER_YAML),
+                "--device", device.type, *opts, "KD.TEACHER",
+                str(teacher_pth), "TRAIN.END_EPOCH", "2"]
+        run_dir = (root / "out" / "mpii" / "hourglass"
+                   / f"{FPD_YAML.stem}_{STALL_RUN_TAG}")
+        worker = root / "stall_worker.py"
+        worker.write_text(STALL_WORKER)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # (a) attempt 0 stalls and exits 86; torchrun restarts it
+        log_path = root / "torchrun.log"
+        wall = run_process_group(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", "--max-restarts", "1", str(worker),
+             str(record), str(run_dir), str(STALL_SPIN_S), *argv],
+            log_path, STALL_LAUNCH_TIMEOUT_S, tag=STALL_RUN_TAG)
+        a0, a1 = (json.loads((record / f"attempt{i}.json").read_text())
+                  for i in (0, 1))
+        out = log_path.read_text()
+        lines = log_times(run_dir / "running.log")
+        msgs = [m for _, m in lines]
+        bound = STALL_TIMEOUT_S + min(max(STALL_TIMEOUT_S / 4, 0.05), 30.0) \
+            + 30.0      # timeout, a poll, the callbacks' budget
+        stall = a0.get("exit", math.inf) - a0.get("last_beat", -math.inf)
+        fires = [m for m in msgs if m.startswith("STALL WATCHDOG")]
+        frames = thread_dump(out)
+        top = frames[0][1] if frames else None
+        if (a0.get("code") != 86 or not stall <= bound or len(fires) != 1
+                or top not in CUDA_WAITS):
+            raise AssertionError(
+                f"stall: attempt 0 {a0}; {stall:.2f} s from the last beat "
+                f"to the exit (bound {bound}); watchdog lines {fires}; main "
+                f"thread {frames[:4]}; log tail:\n{out[-4000:]}")
+        log("stall", f"attempt 0: device spin of {STALL_SPIN_S:g} s "
+            f"({a0['spin_cycles']:,} cycles) enqueued after epoch 1's first "
+            f"step; exit {a0['code']} {stall:.2f} s after its last beat "
+            f"(timeout {STALL_TIMEOUT_S} s, bound {bound:g} s), "
+            f"{a0['exit'] - a0['spin_enqueued']:.2f} s after the spin was "
+            f"enqueued (the last beat "
+            f"{a0['last_beat'] - a0['spin_enqueued']:+.2f} s from it); "
+            f"{fires[0]!r}; main thread blocked in "
+            + " <- ".join(f"{Path(f).name}:{fn}" for f, fn in frames[:4]))
+        agent = [ln.strip() for ln in out.splitlines()
+                 if re.search(r"exitcode|restart", ln, re.I)
+                 and "[rank" not in ln][:3]
+        log("stall", "torchrun's agent: " + " | ".join(agent))
+
+        ck1 = a1["ckpt"]
+        resumed = [m for m in msgs if m.startswith(
+            "=> auto-resumed from epoch 1 ")]
+        saved = ck.load_checkpoint_file(str(run_dir / ck.CKPT_NAME))
+        if ((ck1["epoch"], ck1["step"], ck1["adam_steps"]) != (1, 2, [2.0])
+                or not {"state_dict", "optimizer", "epoch", "perf",
+                        "step"} <= set(ck1["keys"])
+                or len(resumed) != 1
+                or f"parameter sum {ck1['param_sum']})" not in resumed[0]
+                or (saved["epoch"], saved["step"]) != (2, 4)
+                or not (run_dir / ck.FINAL_NAME).exists()):
+            raise AssertionError(f"stall: attempt 1 found {ck1}; resumed "
+                                 f"{resumed}; checkpoint at epoch "
+                                 f"{saved['epoch']}, step {saved['step']}")
+        first_step = next(t for t, m in lines
+                          if t >= a1["start"] and m.startswith("Epoch: ["))
+        log("stall", f"attempt 1: started {a1['start'] - a0['exit']:.2f} s "
+            f"after attempt 0's exit, the card answered "
+            f"{a1['card_ready'] - a0['exit']:.2f} s after it (its own "
+            f"start-up to the card {a1['card_ready'] - a1['start']:.2f} s, "
+            f"attempt 0's {a0['card_ready'] - a0['start']:.2f} s); first "
+            f"train step {first_step - a1['start']:.2f} s after its start; "
+            f"{resumed[0]}; checkpoint at epoch {saved['epoch']}, step "
+            f"{saved['step']}; attempt 1 {a1['end'] - a1['start']:.2f} s, "
+            f"attempt 0 {a0['exit'] - a0['start']:.2f} s, the whole "
+            f"launch {wall:.2f} s; attempt 1's launches "
+            + ", ".join(f"{k} {v}" for k, v in a1["launches"].items() if v)
+            + f"; {label}")
+
+        last = [re.search(r"\(perf ([-\d.]+),", m).group(1) for m in msgs
+                if m.startswith("=> saving checkpoint")][-1]
+        preds = loadmat(str(run_dir / "pred.mat"))["preds"]
+        test = cli_run(test_cli, ["--cfg", str(FPD_YAML), "--device",
+                                  str(device), *opts, "TEST.MODEL_FILE",
+                                  str(run_dir / ck.FINAL_NAME)], totals)
+        per_batch = math.ceil(MPII_PEOPLE / TRAIN_BATCH)
+        check_cli("stall test", test, expected(
+            device, decode_heatmaps=K1_PER_EVAL_BATCH * per_batch), 1, 0)
+        got = test["vals"][0][2][:, :, 0:2] + 1.0
+        if not np.array_equal(got, preds) or f"{test['result']:.4f}" != last:
+            raise AssertionError(
+                f"stall test: PCKh Mean {test['result']:.4f} against the "
+                f"restarted run's last {last}; predictions max |diff| "
+                f"{np.abs(got - preds).max():.3g}")
+        log("stall", f"cli.test on final_state.pth: PCKh Mean "
+            f"{test['result']:.4f}, and all {preds.shape[0]} people's "
+            f"predictions equal to the restarted run's last validation")
+
+        # (b) the epoch-1 state as fhpe_tpu's checkpoint.msgpack
+        pth_dir, run_b = root / "pth", (root / "msgpack_out" / "mpii"
+                                        / "hourglass"
+                                        / f"{FPD_YAML.stem}_{CLI_RUN_TAG}")
+        pth_dir.mkdir()
+        run_b.mkdir(parents=True)
+        (record / "checkpoint_epoch1.pth").rename(pth_dir / ck.CKPT_NAME)
+        written, epoch, perf = ck.auto_resume(
+            str(pth_dir), create_train_state(scfg, seed=1, device=device))
+        tree = checkpoint_tree_from_state(scfg, written.model,
+                                          written.optimizer, written.step,
+                                          epoch, perf)
+        t0 = time.perf_counter()
+        data = msgpack.packb(tree)
+        (run_b / ck.JAX_CKPT_NAME).write_bytes(data)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, b_epoch, b_perf = ck.auto_resume(
+            str(run_b), create_train_state(scfg, seed=2, device=device), scfg)
+        t_read = time.perf_counter() - t0
+        differ = [k for k, v in written.model.state_dict().items()
+                  if not k.endswith("num_batches_tracked")
+                  and not torch.equal(v, back.model.state_dict()[k])]
+        opt_w = written.optimizer.state_dict()["state"]
+        opt_b = back.optimizer.state_dict()["state"]
+        differ += [f"{i}:{key}" for i, st in opt_w.items() for key in st
+                   if not torch.equal(torch.as_tensor(st[key]).cpu(),
+                                      torch.as_tensor(opt_b[i][key]).cpu())]
+        if (differ or (b_epoch, b_perf, back.step) != (epoch, perf,
+                                                       written.step)
+                or len(opt_b) != len(opt_w)):
+            raise AssertionError(f"msgpack resume: {len(differ)} tensors "
+                                 f"differ ({differ[:5]}); epoch {b_epoch}, "
+                                 f"perf {b_perf}, step {back.step}")
+        n_tensors = sum(1 for k in written.model.state_dict()
+                        if not k.endswith("num_batches_tracked"))
+        log("msgpack-resume", f"attempt 0's epoch-1 state as fhpe_tpu's "
+            f"checkpoint.msgpack: {len(data) / 1e6:.2f} MB written in "
+            f"{t_write:.3f} s, resumed in {t_read:.3f} s bit-equal (float32): "
+            f"{n_tensors} weight and BN tensors, Adam's moments and step of "
+            f"{len(opt_w)} parameters, step {back.step}, epoch {b_epoch}, "
+            f"perf {b_perf}")
+        del written, back
+        torch.cuda.empty_cache()
+
+        # the watchdog stays armed: a healthy run in this process must not
+        # fire (a fire would end this script with code 86)
+        argv_b = [a.replace(str(root / "out"), str(root / "msgpack_out"))
+                  for a in argv]
+        run = cli_run(fpd_cli, argv_b, totals, "make_fpd_train_step")
+        check_cli("msgpack-resume", run, expected(
+            device, conv3x3_wgrad=P4_PER_STEP * 2,
+            decode_heatmaps=K1_PER_TRAIN_STEP * 2
+            + K1_PER_EVAL_BATCH * per_batch * 3), 3, 2)
+        read = [m for m in run["lines"] if "resume checkpoint" in m]
+        resumed_b = [m for m in run["lines"]
+                     if m.startswith("=> auto-resumed from epoch 1 ")]
+        saved_b = ck.load_checkpoint_file(str(run_b / ck.CKPT_NAME))
+        adam = {float(st["step"]) for st in
+                saved_b["optimizer"]["state"].values()}
+        if (len(read) != 1 or not read[0].endswith(ck.JAX_CKPT_NAME)
+                or len(resumed_b) != 1
+                or (saved_b["epoch"], saved_b["step"], adam) != (2, 4, {4.0})):
+            raise AssertionError(f"msgpack-resume: read {read}, resumed "
+                                 f"{resumed_b}, checkpoint epoch "
+                                 f"{saved_b['epoch']} step {saved_b['step']} "
+                                 f"Adam {adam}")
+        tap = LogTap()
+        logging.getLogger().addHandler(tap)
+        try:
+            again, a_epoch, _ = ck.auto_resume(
+                str(run_b), create_train_state(scfg, seed=3, device=device),
+                scfg)
+        finally:
+            logging.getLogger().removeHandler(tap)
+        read2 = [m for m in tap.lines if "resume checkpoint" in m]
+        if (a_epoch, again.step) != (2, 4) or not (
+                read2 and read2[-1].endswith(ck.CKPT_NAME)):
+            raise AssertionError(f"msgpack-resume: the second resume read "
+                                 f"{read2}, epoch {a_epoch}")
+        del again
+        final_a = ck.load_model_weights(str(run_dir / ck.CKPT_NAME))
+        final_b = saved_b["state_dict"]
+        gap = max((final_a[k].double() - final_b[k].double()).abs().max()
+                  .item() for k in final_a
+                  if not k.endswith("num_batches_tracked"))
+        log("msgpack-resume", f"cli.fpd_train resumed from it in "
+            f"{run['wall']:.2f} s: {read[0]!r}; {resumed_b[0]}; epoch 1's "
+            f"2 steps and 3 validations, checkpoint.pth at epoch 2, step 4, "
+            f"Adam steps 4; a second resume read {Path(read2[-1].split()[-1]).name}"
+            f"; against attempt 1's epoch-2 checkpoint (the same state and "
+            f"data through the torchrun run) max |diff| {gap:.3g}; "
+            f"launches " + ", ".join(f"{k} {v}" for k, v in
+                                     run["counts"].items() if v))
+    log("stall", f"phase 33 in {time.perf_counter() - t_phase:.1f} s; "
+        f"{label}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4321,6 +4725,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         phase_replicas(device, totals, label, Path(tmp))
     phase_hrnet_cli(device, totals, label)
+    phase_stall_restart(device, totals, label)
 
     for name in KERNELS:
         if totals[name] <= 0:

@@ -270,10 +270,14 @@ def device_batch(cfg, batch, device, for_eval=False):
 
 
 def validate(cfg, model, val_loader, meta, logger, evaluate_fn=None,
-             output_dir: str = "", writer=None, global_step: int = 0):
+             output_dir: str = "", writer=None, global_step: int = 0,
+             watchdog=None):
     """Full validation pass of ``model`` on its own device (reference
     function.py:189-332; ``fhpe_tpu/cli/common.py::validate`` on one
-    device, with no mesh, no compiled-step cache and no watchdog).
+    device, with no mesh and no compiled-step cache).  ``watchdog``
+    (``utils/watchdog.py``) beats after every batch and is disarmed
+    across ``evaluate_fn``, which runs on the host and may take long on
+    real annotation sets, as in ``fhpe_tpu``.
 
     With ``writer`` set, mirrors the reference's TB surface (valid_loss /
     valid_acc scalars + the name_values dict, function.py:304-330).  Under
@@ -327,6 +331,8 @@ def validate(cfg, model, val_loader, meta, logger, evaluate_fn=None,
         batch_acc = float((hits[has] / valids[has]).mean()) if has.any() else 0.0
         accs.update(batch_acc, max(int(has.sum()), 1))
         idx += n
+        if watchdog is not None:
+            watchdog.beat()
 
         if i % cfg.PRINT_FREQ == 0:
             if logger:
@@ -359,8 +365,12 @@ def validate(cfg, model, val_loader, meta, logger, evaluate_fn=None,
     if evaluate_fn is None:
         return overall_acc, {}, all_preds, all_boxes, img_paths
 
+    if watchdog is not None:
+        watchdog.disarm()
     name_values, perf = evaluate_fn(cfg, all_preds, output_dir, all_boxes,
                                     img_paths)
+    if watchdog is not None:
+        watchdog.beat()
     if logger:
         if isinstance(name_values, list):
             for nv in name_values:

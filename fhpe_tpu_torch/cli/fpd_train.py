@@ -10,7 +10,9 @@ both models' summaries logged (Student, then Teacher) and both
 validated before epoch 0 as a sanity check (on rank 0); per-epoch FPD
 step with ``loss = (1-alpha)*MSE(student, gt) + alpha*MSE(student,
 teacher)``, the teacher in eval mode in every process; checkpoints,
-AUTO_RESUME and the ``DEBUG.*`` image dumps as ``cli/train.py``.
+AUTO_RESUME, the ``DEBUG.*`` image dumps and the stall watchdog
+(``TPU.STALL_TIMEOUT_S``, beating in both pre-training validations too)
+as ``cli/train.py``.
 
 Usage:
   python -m fhpe_tpu_torch.cli.fpd_train --cfg <student.yaml> \\
@@ -28,6 +30,7 @@ from ..parallel import is_main_process, shutdown
 from ..train import (create_train_state, make_batch_preprocessor,
                      make_fpd_train_step, param_dtype)
 from ..utils.checkpoint import load_model_weights
+from ..utils.graph import before_capture
 from ..utils.logger import save_config_yaml
 from ..utils.pretrained import load_pretrained
 from . import train as train_cli
@@ -103,6 +106,7 @@ def run(args, cfg, device):
 
     train_loader, val_loader, meta = build_loaders(cfg)
     writer = tb_writer(tb_dir, logger) if rank0 else None
+    watchdog = train_cli.stall_watchdog(cfg, logger, output_dir)
     try:
         prepare = (make_batch_preprocessor(cfg, meta["joints_weight"])
                    if cfg.TPU.DEVICE_PREPROCESS else None)
@@ -110,19 +114,6 @@ def run(args, cfg, device):
             cfg, teacher, teacher_cfg=tcfg, prepare=prepare,
             debug_outputs=debug_outputs(cfg))
         evaluate_fn = make_evaluate_fn(cfg, device=device)
-
-        # pre-training sanity validation of both models
-        # (fpd_train.py:242-250), on rank 0
-        if rank0:
-            logger.info("=> validating teacher before training")
-            tperf = validate(cfg, teacher, val_loader, meta, logger,
-                             evaluate_fn, output_dir)[0]
-            logger.info(f"=> teacher perf: {tperf:.4f}")
-            logger.info("=> validating student before training")
-            sperf = validate(cfg, state.model, val_loader, meta, logger,
-                             evaluate_fn, output_dir)[0]
-            logger.info(f"=> student perf: {sperf:.4f}")
-
         global_step = 0
 
         def train_epoch(state, epoch):
@@ -130,17 +121,33 @@ def run(args, cfg, device):
             state, global_step = train_cli.run_epoch(
                 cfg, train_loader, step_fn, state, device, epoch, logger,
                 writer, global_step, FPD_METERS, FPD_TB_NAMES,
-                output_dir=output_dir)
+                output_dir=output_dir, watchdog=watchdog)
             return state
 
         def evaluate(state, epoch):
             return validate(cfg, state.model, val_loader, meta, logger,
                             evaluate_fn, output_dir, writer=writer,
-                            global_step=epoch)[0]
+                            global_step=epoch, watchdog=watchdog)[0]
 
-        train_cli.epoch_loop(cfg, state, begin_epoch, best_perf, train_epoch,
-                             evaluate, output_dir, logger, writer)
+        with before_capture(watchdog.disarm):
+            # pre-training sanity validation of both models
+            # (fpd_train.py:242-250), on rank 0
+            if rank0:
+                logger.info("=> validating teacher before training")
+                tperf = validate(cfg, teacher, val_loader, meta, logger,
+                                 evaluate_fn, output_dir,
+                                 watchdog=watchdog)[0]
+                logger.info(f"=> teacher perf: {tperf:.4f}")
+                logger.info("=> validating student before training")
+                sperf = validate(cfg, state.model, val_loader, meta, logger,
+                                 evaluate_fn, output_dir,
+                                 watchdog=watchdog)[0]
+                logger.info(f"=> student perf: {sperf:.4f}")
+            train_cli.epoch_loop(cfg, state, begin_epoch, best_perf,
+                                 train_epoch, evaluate, output_dir, logger,
+                                 writer, watchdog)
     finally:
+        watchdog.stop()
         train_loader.close()
         val_loader.close()
         if writer is not None:

@@ -10,7 +10,8 @@ flip-test and dataset metrics, after the model summary
 does.  Any
 layout ``utils/checkpoint.py::load_model_weights`` reads loads, the
 reference's released ``.pth`` files and ``fhpe_tpu``'s ``.msgpack`` files
-among them.
+among them.  ``TPU.STALL_TIMEOUT_S`` > 0 watches the validation with the
+stall watchdog (exit 86), as ``cli/train.py`` does.
 
 Usage:
   python -m fhpe_tpu_torch.cli.test --cfg <cfg.yaml> [--device cuda|cpu] \\
@@ -25,9 +26,11 @@ from ..models import get_pose_net
 from ..parallel import is_main_process, shutdown
 from ..train import param_dtype
 from ..utils.checkpoint import FINAL_NAME, load_model_weights
+from ..utils.graph import before_capture
 from .common import (build_loaders, check_supported, create_run_logger,
                      load_cfg_from_args, make_evaluate_fn, parse_args,
                      process_text, resolve_device, summary_text, validate)
+from .train import stall_watchdog
 
 
 def main(argv=None):
@@ -60,10 +63,14 @@ def run(args, cfg, device):
     logger.info(summary_text(model, cfg))
 
     _, val_loader, meta = build_loaders(cfg, train=False)
+    watchdog = stall_watchdog(cfg, logger)
     try:
-        perf, *_ = validate(cfg, model, val_loader, meta, logger,
-                            make_evaluate_fn(cfg, device=device), output_dir)
+        with before_capture(watchdog.disarm):
+            perf, *_ = validate(cfg, model, val_loader, meta, logger,
+                                make_evaluate_fn(cfg, device=device),
+                                output_dir, watchdog=watchdog)
     finally:
+        watchdog.stop()
         val_loader.close()
     logger.info(f"=> final perf: {perf:.4f}")
     return perf

@@ -17,6 +17,12 @@ steps' collectives in ``train/step.py``): every rank trains every step;
 rank 0 alone validates, writes the run directory (log, config, TensorBoard,
 checkpoints, final state) and decides a resume, which it broadcasts.
 
+``TPU.STALL_TIMEOUT_S`` > 0 arms the stall watchdog (``utils/watchdog.py``)
+on the first beat: one after every train step and validation batch, none
+across the dataset metric or a step call that captures its graph.  A
+stalled run flushes the pending checkpoint write and exits 86, for a
+supervisor to restart with ``AUTO_RESUME`` and a pinned ``FHPE_RUN_TAG``.
+
 Usage:
   python -m fhpe_tpu_torch.cli.train --cfg experiments/mpii/hourglass/hg4.yaml \\
       [--device cuda|cpu] [TRAIN.END_EPOCH 140 ...]
@@ -34,11 +40,13 @@ from ..parallel import is_main_process, shutdown
 from ..train import (create_train_state, lr_for_epoch,
                      make_batch_preprocessor, make_optimizer,
                      make_train_step, set_lr)
-from ..utils.checkpoint import (auto_resume_multihost, load_model_weights,
-                                save_best, save_checkpoint,
-                                save_final_state)
+from ..utils.checkpoint import (auto_resume_multihost, flush_pending,
+                                load_model_weights, save_best,
+                                save_checkpoint, save_final_state)
+from ..utils.graph import before_capture
 from ..utils.logger import WindowedMeters, save_config_yaml
 from ..utils.pretrained import load_pretrained
+from ..utils.watchdog import StallWatchdog
 from .common import (build_loaders, check_supported, create_run_logger,
                      debug_images, debug_outputs, device_batch,
                      load_cfg_from_args, make_evaluate_fn, parse_args,
@@ -80,7 +88,7 @@ class StepProfiler:
 
 def run_epoch(cfg, loader, step_fn, state, device, epoch, logger, writer,
               global_step, value_keys=("loss",), tb_names=None,
-              output_dir=None):
+              output_dir=None, watchdog=None):
     """One training epoch of ``step_fn(state, device_batch) -> (state,
     metrics)``: the meters of ``value_keys`` and ``acc`` drained every
     ``PRINT_FREQ`` steps (the one read of the card per window), the TB
@@ -88,8 +96,9 @@ def run_epoch(cfg, loader, step_fn, state, device, epoch, logger, writer,
     epoch's steps, wall time and images/s.  Where the metrics carry
     ``"output"`` (``debug_outputs``), the ``PRINT_FREQ`` steps of a batch
     with ``"image"`` also write ``train_{epoch}_{i}_*.jpg`` into
-    ``output_dir``: the only steps whose heatmaps are read.  Returns
-    (state, global_step)."""
+    ``output_dir``: the only steps whose heatmaps are read.  ``watchdog``
+    beats at the end of each step's iteration, after its window read, as
+    ``fhpe_tpu``'s loop beats.  Returns (state, global_step)."""
     tb_names = tb_names or {"loss": "train_loss"}
     profiler = StepProfiler(epoch, logger)
     meters = WindowedMeters(value_keys=value_keys)
@@ -118,6 +127,8 @@ def run_epoch(cfg, loader, step_fn, state, device, epoch, logger, writer,
             if output_dir and "output" in metrics and "image" in batch:
                 debug_images(cfg, batch, metrics, os.path.join(
                     output_dir, f"train_{epoch}_{i}"))
+        if watchdog is not None:
+            watchdog.beat()
         global_step += 1
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -149,13 +160,14 @@ def check_checkpoint_path(cfg) -> None:
 
 def resume(cfg, state, output_dir, logger):
     """(state, begin_epoch, best_perf), from AUTO_RESUME when rank 0 finds
-    the run dir's checkpoint (every rank loads rank 0's).  The log line
-    carries the parameters' float64 sum, one number to compare across
-    ranks."""
+    the run dir's checkpoint, the port's ``checkpoint.pth`` or else
+    ``fhpe_tpu``'s ``checkpoint.msgpack`` (every rank loads rank 0's),
+    before any step is made or captured.  The log line carries the
+    parameters' float64 sum, one number to compare across ranks."""
     begin_epoch, best_perf = cfg.TRAIN.BEGIN_EPOCH, -1.0
     if cfg.AUTO_RESUME:
         state, ckpt_epoch, ckpt_perf = auto_resume_multihost(output_dir,
-                                                             state)
+                                                             state, cfg)
         if ckpt_epoch is not None:
             begin_epoch, best_perf = ckpt_epoch, ckpt_perf
             total = sum(float(p.detach().double().sum())
@@ -167,14 +179,20 @@ def resume(cfg, state, output_dir, logger):
 
 
 def epoch_loop(cfg, state, begin_epoch, best_perf, train_epoch, evaluate,
-               output_dir, logger, writer):
+               output_dir, logger, writer, watchdog=None):
     """The epochs ``begin_epoch .. END_EPOCH - 1``: ``set_lr`` to
     ``lr_for_epoch``, ``train_epoch(state, epoch)``, validation every
     ``EVAL_FREQ`` epochs and at the last, the ``>=`` best ratchet, the
     rolling checkpoint every ``CKPT_FREQ`` evaluations and at the last,
     ``model_best`` on a best epoch whose checkpoint is skipped.  Every
     rank trains every epoch at the same rate; validation, the ratchet and
-    every write are rank 0's (``fhpe_tpu/cli/train.py:207-230``)."""
+    every write are rank 0's (``fhpe_tpu/cli/train.py:207-230``).
+
+    A rank other than 0 disarms ``watchdog`` at the end of each epoch:
+    its next host wait, the first window read of the next epoch, waits on
+    the step's all-reduce until rank 0 has validated and checkpointed,
+    however long that takes; the beat after that read arms it again.
+    (``fhpe_tpu`` beats only on the evaluating process.)"""
     eval_freq = max(1, int(cfg.TRAIN.get("EVAL_FREQ", 1)))
     ckpt_freq = max(1, int(cfg.TRAIN.get("CKPT_FREQ", 1)))
     rank0 = is_main_process()
@@ -182,6 +200,8 @@ def epoch_loop(cfg, state, begin_epoch, best_perf, train_epoch, evaluate,
         state = set_lr(state, lr_for_epoch(cfg, epoch))
         state = train_epoch(state, epoch)
         last = epoch + 1 == cfg.TRAIN.END_EPOCH
+        if not rank0 and watchdog is not None:
+            watchdog.disarm()
         if not rank0 or not ((epoch + 1) % eval_freq == 0 or last):
             continue
         perf = evaluate(state, epoch)
@@ -203,6 +223,19 @@ def epoch_loop(cfg, state, begin_epoch, best_perf, train_epoch, evaluate,
         save_final_state(output_dir, state)
         logger.info(f"=> saved final state to {output_dir}")
     return state
+
+
+def stall_watchdog(cfg, logger, output_dir=None) -> StallWatchdog:
+    """The stall watchdog of ``TPU.STALL_TIMEOUT_S`` (disabled at 0), its
+    stall callback the flush of ``output_dir``'s pending checkpoint
+    write."""
+    on_stall = [lambda: flush_pending(output_dir)] if output_dir else []
+    watchdog = StallWatchdog(float(cfg.TPU.get("STALL_TIMEOUT_S", 0)),
+                             logger=logger, on_stall=on_stall)
+    if watchdog.enabled:
+        logger.info(f"=> stall watchdog armed on first step "
+                    f"(timeout {watchdog.timeout_s:.0f}s, exit 86)")
+    return watchdog
 
 
 def main(argv=None):
@@ -236,6 +269,7 @@ def run(args, cfg, device):
 
     train_loader, val_loader, meta = build_loaders(cfg)
     writer = tb_writer(tb_dir, logger) if rank0 else None
+    watchdog = stall_watchdog(cfg, logger, output_dir)
     try:
         prepare = (make_batch_preprocessor(cfg, meta["joints_weight"])
                    if cfg.TPU.DEVICE_PREPROCESS else None)
@@ -248,17 +282,20 @@ def run(args, cfg, device):
             nonlocal global_step
             state, global_step = run_epoch(
                 cfg, train_loader, step_fn, state, device, epoch, logger,
-                writer, global_step, output_dir=output_dir)
+                writer, global_step, output_dir=output_dir,
+                watchdog=watchdog)
             return state
 
         def evaluate(state, epoch):
             return validate(cfg, state.model, val_loader, meta, logger,
                             evaluate_fn, output_dir, writer=writer,
-                            global_step=epoch)[0]
+                            global_step=epoch, watchdog=watchdog)[0]
 
-        epoch_loop(cfg, state, begin_epoch, best_perf, train_epoch, evaluate,
-                   output_dir, logger, writer)
+        with before_capture(watchdog.disarm):
+            epoch_loop(cfg, state, begin_epoch, best_perf, train_epoch,
+                       evaluate, output_dir, logger, writer, watchdog)
     finally:
+        watchdog.stop()
         train_loader.close()
         val_loader.close()
         if writer is not None:

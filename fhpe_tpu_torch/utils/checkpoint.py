@@ -21,11 +21,18 @@ it first.  :func:`load_model_weights` reads the reference's released
 model's config, ``fhpe_tpu``'s ``.msgpack`` weight files.  In a process group
 the CLIs write on rank 0 alone, and :func:`auto_resume_multihost` hands
 rank 0's checkpoint to every rank.
+
+AUTO_RESUME reads ``checkpoint.pth`` where it is, else ``fhpe_tpu``'s
+``checkpoint.msgpack`` (its whole ``TrainState``: weights, BatchNorm
+statistics, step and optax state, with epoch and perf), carried over to
+the port's names and ``torch.optim`` state (``utils/convert.py``); the
+port then goes on writing ``checkpoint.pth``, which the next resume takes.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict
@@ -35,12 +42,15 @@ import torch
 
 from ..parallel import broadcast_object, initialized, is_main_process
 from . import msgpack
-from .convert import state_dict_from_jax
+from .convert import optimizer_state_from_jax, state_dict_from_jax
 
 CKPT_NAME = "checkpoint.pth"
+JAX_CKPT_NAME = "checkpoint.msgpack"        # fhpe_tpu's rolling checkpoint
 BEST_NAME = "model_best.pth"
 FINAL_NAME = "final_state.pth"
 META_NAME = "checkpoint_meta.json"
+
+log = logging.getLogger(__name__)
 
 
 class _DirWriter:
@@ -210,6 +220,8 @@ def load_model_weights(path: str, cfg=None) -> Dict[str, torch.Tensor]:
 def _numpy_tree(tree):
     if isinstance(tree, dict):
         return {k: _numpy_tree(v) for k, v in tree.items()}
+    if not isinstance(tree, torch.Tensor):
+        return tree
     return tree.float().numpy() if tree.dtype == torch.bfloat16 \
         else tree.numpy()
 
@@ -224,12 +236,18 @@ def _msgpack_weights(path: str, cfg) -> Dict[str, torch.Tensor]:
     changes) has no bias on the convs that a BatchNorm follows.  Where
     ``cfg``'s model has such a bias, it gets zeros, which compute the same
     thing."""
-    from ..models import get_pose_net
-
     flush_pending(os.path.dirname(path) or ".")
     with open(path, "rb") as f:
         payload = msgpack.unpackb(f.read())
-    tree = payload["state"] if "state" in payload else payload
+    return _tree_weights(payload["state"] if "state" in payload else payload,
+                         cfg)
+
+
+def _tree_weights(tree: dict, cfg) -> Dict[str, torch.Tensor]:
+    """``{"params", "batch_stats"}`` of a read ``.msgpack`` tree -> the
+    ``state_dict`` of ``get_pose_net(cfg)`` (:func:`_msgpack_weights`)."""
+    from ..models import get_pose_net
+
     sd = state_dict_from_jax(cfg, {
         "params": _numpy_tree(tree["params"]),
         "batch_stats": _numpy_tree(tree.get("batch_stats", {}))})
@@ -264,13 +282,49 @@ def _load_optimizer_state(optimizer, saved: dict) -> None:
     optimizer.load_state_dict(dict(saved, param_groups=groups))
 
 
-def _read_resume(output_dir: str):
-    """``output_dir``'s rolling checkpoint, or None when there is none."""
+def _read_resume(output_dir: str, state, cfg=None):
+    """``output_dir``'s rolling checkpoint as a ``.pth`` payload:
+    ``checkpoint.pth`` where it is, else ``fhpe_tpu``'s
+    ``checkpoint.msgpack`` carried over (:func:`_msgpack_resume`, which
+    needs ``cfg``); None when neither is there.  Logs the file it read."""
     flush_pending(output_dir)
     path = os.path.join(output_dir, CKPT_NAME)
+    if os.path.exists(path):
+        log.info(f"=> reading the resume checkpoint {path}")
+        return load_checkpoint_file(path)
+    path = os.path.join(output_dir, JAX_CKPT_NAME)
     if not os.path.exists(path):
         return None
-    return load_checkpoint_file(path)
+    if cfg is None:
+        raise ValueError(
+            f"{path}: fhpe_tpu's checkpoint holds flax and optax trees, and "
+            f"mapping them to this model and optimizer needs the run's "
+            f"config: auto_resume(output_dir, state, cfg)")
+    log.info(f"=> reading fhpe_tpu's resume checkpoint {path}")
+    return _msgpack_resume(path, cfg, state)
+
+
+def _msgpack_resume(path: str, cfg, state) -> dict:
+    """``fhpe_tpu``'s ``checkpoint.msgpack``
+    (``fhpe_tpu/utils/checkpoint.py::save_checkpoint``: ``{epoch, perf,
+    state: {step, params, batch_stats, opt_state}}``) as the payload of a
+    ``checkpoint.pth`` for ``state``'s model and optimizer: the weights
+    and BatchNorm statistics (``state_dict_from_jax``), the optimizer's
+    state from optax's (``optimizer_state_from_jax``: Adam's moments and
+    count, or SGD's trace; another optimizer than ``TRAIN.OPTIMIZER`` is
+    refused), the step, epoch and perf.  The rate is not read: the epoch
+    loop sets it from the schedule."""
+    with open(path, "rb") as f:
+        payload = msgpack.unpackb(f.read())
+    tree = _numpy_tree(payload["state"])
+    try:
+        optimizer = optimizer_state_from_jax(cfg, state.optimizer,
+                                             state.model, tree["opt_state"])
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
+    return {"epoch": int(payload["epoch"]), "perf": float(payload["perf"]),
+            "state_dict": _tree_weights(tree, cfg), "optimizer": optimizer,
+            "step": int(tree["step"])}
 
 
 def _resume_from(state, payload):
@@ -282,26 +336,30 @@ def _resume_from(state, payload):
     return state, int(payload["epoch"]), float(payload["perf"])
 
 
-def auto_resume(output_dir: str, state):
-    """(state, begin_epoch, perf) from ``output_dir``'s rolling checkpoint,
-    or (state, None, None) when there is none.  Restores the weights, the
-    optimizer (Adam's moments and step counts, cast by
+def auto_resume(output_dir: str, state, cfg=None):
+    """(state, begin_epoch, perf) from ``output_dir``'s rolling checkpoint
+    (:func:`_read_resume`: the port's ``checkpoint.pth``, else
+    ``fhpe_tpu``'s ``checkpoint.msgpack`` read for ``cfg``), or (state,
+    None, None) when there is none.  Restores the weights, the optimizer
+    (Adam's moments and step counts or SGD's momentum, cast by
     ``optimizer.load_state_dict`` to the parameters' device and dtype) and
-    the step count in place."""
-    return _resume_from(state, _read_resume(output_dir))
+    the step count in place, before any step of the run is captured."""
+    return _resume_from(state, _read_resume(output_dir, state, cfg))
 
 
-def auto_resume_multihost(output_dir: str, state):
+def auto_resume_multihost(output_dir: str, state, cfg=None):
     """AUTO_RESUME in a process group: rank 0 decides, every rank follows
     (``fhpe_tpu``'s ``auto_resume_multihost``).
 
     Only rank 0 writes checkpoints, so a rank reading its own disk would
     resume at another epoch than rank 0, and the ranks' steps and rates
-    would part.  Rank 0 reads its checkpoint and broadcasts it, weights,
-    BatchNorm buffers, optimizer state, epoch and perf, as one object;
-    every rank then loads it as :func:`auto_resume` does.  No shared
-    filesystem is assumed.  Without a group: :func:`auto_resume`."""
+    would part.  Rank 0 reads its checkpoint (either file, as
+    :func:`auto_resume`) and broadcasts it, weights, BatchNorm buffers,
+    optimizer state, epoch and perf, as one object; every rank then loads
+    it as :func:`auto_resume` does.  No shared filesystem is assumed.
+    Without a group: :func:`auto_resume`."""
     if not initialized():
-        return auto_resume(output_dir, state)
-    payload = _read_resume(output_dir) if is_main_process() else None
+        return auto_resume(output_dir, state, cfg)
+    payload = (_read_resume(output_dir, state, cfg) if is_main_process()
+               else None)
     return _resume_from(state, broadcast_object(payload))

@@ -7,7 +7,10 @@ one weight set drives both forwards.  :func:`variables_from_state_dict`
 walks it back, a state_dict to ``fhpe_tpu``'s tree (what its
 ``.msgpack`` weight files hold).
 :func:`adam_state_from_jax` carries optax Adam's moments over by the same
-mapping.  All take or give the flax trees as numpy and need no JAX.
+mapping, and :func:`optimizer_state_from_jax` Adam's or SGD's state as
+``fhpe_tpu``'s checkpoints hold it; :func:`checkpoint_tree_from_state`
+writes a port train state in that checkpoint's layout.  All take or give
+the flax trees as numpy and need no JAX.
 """
 
 from __future__ import annotations
@@ -242,6 +245,32 @@ def _put(tree: dict, path: Tuple[str, ...], leaf: dict) -> None:
     tree[path[-1]] = leaf
 
 
+def _param_tree(cfg, tensors) -> dict:
+    """torch parameter name -> tensor (the parameters, or an optimizer
+    moment of them) -> a tree shaped like flax ``params``, the inverse of
+    :func:`_param_tensors`."""
+    params: dict = {}
+    for kind, tkey, path in _layers(cfg):
+        if kind == "bn":
+            _put(params, path + ("BatchNorm_0",), {
+                "scale": _np(tensors[f"{tkey}.weight"]),
+                "bias": _np(tensors[f"{tkey}.bias"])})
+            continue
+        w = _np(tensors[f"{tkey}.weight"])
+        if kind == "conv":
+            leaf = {"kernel": np.ascontiguousarray(np.transpose(w,
+                                                                (2, 3, 1, 0)))}
+            name = "Conv_0"
+        else:
+            leaf = {"kernel": np.ascontiguousarray(
+                np.transpose(w, (2, 3, 0, 1))[::-1, ::-1])}
+            name = "ConvTranspose_0"
+        if f"{tkey}.bias" in tensors:
+            leaf["bias"] = _np(tensors[f"{tkey}.bias"])
+        _put(params, path + (name,), leaf)
+    return params
+
+
 def variables_from_state_dict(cfg, state_dict) -> dict:
     """state_dict -> flax ``{"params", "batch_stats"}`` (numpy leaves), the
     inverse of :func:`state_dict_from_jax`.
@@ -252,30 +281,24 @@ def variables_from_state_dict(cfg, state_dict) -> dict:
     ``batch_stats``; ``num_batches_tracked`` is dropped.  A conv without a
     bias in the state_dict gets none in the tree.
     """
-    params: dict = {}
     stats: dict = {}
     for kind, tkey, path in _layers(cfg):
         if kind == "bn":
-            _put(params, path + ("BatchNorm_0",), {
-                "scale": _np(state_dict[f"{tkey}.weight"]),
-                "bias": _np(state_dict[f"{tkey}.bias"])})
             _put(stats, path + ("BatchNorm_0",), {
                 "mean": _np(state_dict[f"{tkey}.running_mean"]),
                 "var": _np(state_dict[f"{tkey}.running_var"])})
-            continue
-        w = _np(state_dict[f"{tkey}.weight"])
-        if kind == "conv":
-            leaf = {"kernel": np.ascontiguousarray(np.transpose(w,
-                                                                (2, 3, 1, 0)))}
-            name = "Conv_0"
-        else:
-            leaf = {"kernel": np.ascontiguousarray(
-                np.transpose(w, (2, 3, 0, 1))[::-1, ::-1])}
-            name = "ConvTranspose_0"
-        if f"{tkey}.bias" in state_dict:
-            leaf["bias"] = _np(state_dict[f"{tkey}.bias"])
-        _put(params, path + (name,), leaf)
-    return {"params": params, "batch_stats": stats}
+    return {"params": _param_tree(cfg, state_dict), "batch_stats": stats}
+
+
+def _moments(cfg, model: torch.nn.Module, tree: dict) -> list:
+    """A tree shaped like flax ``params`` -> one tensor per parameter of
+    ``model``, in ``model.parameters()`` order; zeros for a conv bias the
+    tree lacks (``TPU.DEAD_BIAS_SKIP``), as :func:`state_dict_from_jax`'s
+    readers give the weight itself."""
+    named = _param_tensors(cfg, tree)
+    dtype = next(iter(named.values())).dtype
+    return [named[n] if n in named else torch.zeros(p.shape, dtype=dtype)
+            for n, p in model.named_parameters()]
 
 
 def adam_state_from_jax(cfg, optimizer: torch.optim.Optimizer,
@@ -287,9 +310,109 @@ def adam_state_from_jax(cfg, optimizer: torch.optim.Optimizer,
     ``step`` = count, by the parameter name mapping of
     :func:`state_dict_from_jax`.  Load it with
     ``optimizer.load_state_dict``."""
-    m, v = _param_tensors(cfg, mu), _param_tensors(cfg, nu)
-    state = {i: {"step": torch.tensor(float(count)), "exp_avg": m[name],
-                 "exp_avg_sq": v[name]}
-             for i, (name, _) in enumerate(model.named_parameters())}
+    m, v = _moments(cfg, model, mu), _moments(cfg, model, nu)
+    state = {i: {"step": torch.tensor(float(count)), "exp_avg": m[i],
+                 "exp_avg_sq": v[i]} for i in range(len(m))}
     return {"state": state,
             "param_groups": optimizer.state_dict()["param_groups"]}
+
+
+# The nodes of optax's state that ``fhpe_tpu``'s optimizers keep
+# (``fhpe_tpu/train/state.py::make_optimizer``), by their fields: Adam's
+# ``ScaleByAdamState`` and SGD's momentum ``TraceState``.  They are found
+# by these keys wherever they sit: flax's ``to_state_dict`` names a named
+# tuple's fields and numbers a tuple's items, and where the
+# ``inject_hyperparams`` and ``chain`` wrappers put them is optax's own
+# affair.
+_OPTAX_NODES = {"adam": ("count", "mu", "nu"), "sgd": ("trace",)}
+
+
+def _find_nodes(tree, keys) -> list:
+    """Every dict in ``tree`` that holds all of ``keys``."""
+    if not isinstance(tree, dict):
+        return []
+    found = [tree] if all(k in tree for k in keys) else []
+    for v in tree.values():
+        found += _find_nodes(v, keys)
+    return found
+
+
+def _optax_kind(opt_state: dict) -> str:
+    """``"adam"`` or ``"sgd"``: which of ``fhpe_tpu``'s optimizers wrote
+    ``opt_state`` (flax's ``to_state_dict`` of its optax state); raises
+    where it is neither, or both."""
+    kinds = {k: len(_find_nodes(opt_state, keys))
+             for k, keys in _OPTAX_NODES.items()}
+    found = [k for k, n in kinds.items() if n]
+    if len(found) != 1 or kinds[found[0]] != 1:
+        raise ValueError(f"an optax state with {kinds} of the nodes "
+                         f"{_OPTAX_NODES}: not one of fhpe_tpu's optimizers")
+    return found[0]
+
+
+def optimizer_state_from_jax(cfg, optimizer: torch.optim.Optimizer,
+                             model: torch.nn.Module, opt_state: dict) -> dict:
+    """``fhpe_tpu``'s optax state (flax's ``to_state_dict`` of it, numpy
+    leaves) -> a ``state_dict`` for ``optimizer`` over
+    ``model.parameters()``, the optimizer ``cfg.TRAIN.OPTIMIZER`` names.
+
+    Adam: ``exp_avg`` / ``exp_avg_sq`` / ``step`` are optax's ``mu`` /
+    ``nu`` / ``count`` (:func:`adam_state_from_jax`).  SGD:
+    ``momentum_buffer`` is optax's ``trace``, which with dampening 0 is
+    torch's buffer, nesterov or not (``t = g + momentum * t`` on the
+    decayed gradient in both).  A state of the other optimizer is
+    refused, naming both."""
+    kind, want = _optax_kind(opt_state), cfg.TRAIN.OPTIMIZER
+    if kind != want:
+        raise ValueError(f"the checkpoint holds {kind}'s optimizer state, "
+                         f"but TRAIN.OPTIMIZER is {want}: resume with the "
+                         f"optimizer the run was trained with")
+    (node,) = _find_nodes(opt_state, _OPTAX_NODES[kind])
+    if kind == "adam":
+        return adam_state_from_jax(cfg, optimizer, model, int(node["count"]),
+                                   node["mu"], node["nu"])
+    trace = _moments(cfg, model, node["trace"])
+    return {"state": {i: {"momentum_buffer": t} for i, t in enumerate(trace)},
+            "param_groups": optimizer.state_dict()["param_groups"]}
+
+
+def checkpoint_tree_from_state(cfg, model: torch.nn.Module,
+                               optimizer: torch.optim.Optimizer, step: int,
+                               epoch: int, perf: float) -> dict:
+    """A port train state as ``fhpe_tpu``'s ``checkpoint.msgpack`` payload
+    (``fhpe_tpu/utils/checkpoint.py::save_checkpoint``: ``{epoch, perf,
+    state: {step, params, batch_stats, opt_state}}``, numpy leaves), the
+    inverse of what AUTO_RESUME reads from it; write it with
+    ``utils/msgpack.packb``.  ``opt_state`` is flax's ``to_state_dict`` of
+    ``fhpe_tpu``'s ``inject_hyperparams`` optax state for
+    ``cfg.TRAIN.OPTIMIZER`` (held to the layout ``fhpe_tpu`` writes by
+    ``tests/test_torch_resume_msgpack.py``), its rate the first group's,
+    float64 where the parameters are (``fhpe_tpu`` under
+    ``jax_enable_x64``).  BatchNorm's ``num_batches_tracked`` has no place
+    in it."""
+    variables = variables_from_state_dict(cfg, model.state_dict())
+    saved = optimizer.state_dict()["state"]
+
+    def tree(key):
+        return _param_tree(cfg, {
+            n: saved[i][key] if i in saved else torch.zeros(p.shape)
+            for i, (n, p) in enumerate(model.named_parameters())})
+
+    def i32(v):
+        return np.asarray(int(v), np.int32)
+
+    if cfg.TRAIN.OPTIMIZER == "adam":
+        count = float(saved[0]["step"]) if 0 in saved else 0
+        inner = {"0": {"count": i32(count), "mu": tree("exp_avg"),
+                       "nu": tree("exp_avg_sq")}, "1": {}}
+    else:
+        inner = {"0": {}, "1": {"0": {"trace": tree("momentum_buffer")},
+                                "1": {}}}
+    wide = next(model.parameters()).dtype == torch.float64
+    lr = np.asarray(float(optimizer.param_groups[0]["lr"]),
+                    np.float64 if wide else np.float32)
+    opt_state = {"count": i32(step), "hyperparams": {"learning_rate": lr},
+                 "hyperparams_states": {}, "inner_state": inner}
+    return {"epoch": int(epoch), "perf": float(perf),
+            "state": {"step": i32(step), **variables,
+                      "opt_state": opt_state}}

@@ -14,7 +14,9 @@ its place.
 
 :func:`constant` holds the small tensors a step builds from host values
 (ImageNet mean and std, the flip permutation), made once per device, so
-that no step body copies host data to the card.
+that no step body copies host data to the card.  :func:`before_capture`
+runs a callable before every call that captures (the CLIs' stall
+watchdog disarms there, ``utils/watchdog.py``).
 """
 
 from __future__ import annotations
@@ -44,6 +46,8 @@ LAUNCH_COUNTERS = {
 }
 
 _constants: Dict[tuple, torch.Tensor] = {}
+# zero-argument callables run before a call that captures a graph
+_before_capture: list = []
 
 
 def constant(values, dtype: torch.dtype, device) -> torch.Tensor:
@@ -59,6 +63,19 @@ def constant(values, dtype: torch.dtype, device) -> torch.Tensor:
             t = torch.as_tensor(arr).to(device=device, dtype=dtype)
         _constants[key] = t
     return t
+
+
+@contextlib.contextmanager
+def before_capture(fn: Callable[[], None]):
+    """Inside this context, ``fn()`` runs before every :class:`CapturedStep`
+    call that captures a graph: the call that runs the step eagerly, may
+    build the kernels (``ops/_build.py``, at their first use) and records
+    the graph, which takes longer than a replay."""
+    _before_capture.append(fn)
+    try:
+        yield
+    finally:
+        _before_capture.remove(fn)
 
 
 def launch_counters() -> dict:
@@ -202,6 +219,8 @@ class CapturedStep:
             # a stale graph's memory goes back before the new capture
             self._graphs.pop(key, None)
             del g
+            for fn in list(_before_capture):
+                fn()
             return self._first_call(key, owner, batch, capture, device)
 
     def _first_call(self, key, owner, batch, capture, device) -> dict:
