@@ -46,6 +46,7 @@ from ..utils.checkpoint import (auto_resume_multihost, flush_pending,
 from ..utils.graph import before_capture
 from ..utils.logger import WindowedMeters, save_config_yaml
 from ..utils.pretrained import load_pretrained
+from ..utils.spans import span
 from ..utils.watchdog import StallWatchdog
 from .common import (build_loaders, check_supported, create_run_logger,
                      debug_images, debug_outputs, device_batch,
@@ -57,7 +58,8 @@ from .common import (build_loaders, check_supported, create_run_logger,
 class StepProfiler:
     """``FHPE_PROFILE_DIR``: a ``torch.profiler`` trace of steps 2-12 of
     epoch 0, written as a Chrome trace (``trace.json``) into that
-    directory; inert when the variable is unset or on other epochs."""
+    directory, the ``fhpe.*`` spans (``utils/spans.py``) beside the
+    operators; inert when the variable is unset or on other epochs."""
 
     def __init__(self, epoch: int, logger):
         self.dir = os.environ.get("FHPE_PROFILE_DIR") if epoch == 0 else None
@@ -98,37 +100,45 @@ def run_epoch(cfg, loader, step_fn, state, device, epoch, logger, writer,
     with ``"image"`` also write ``train_{epoch}_{i}_*.jpg`` into
     ``output_dir``: the only steps whose heatmaps are read.  ``watchdog``
     beats at the end of each step's iteration, after its window read, as
-    ``fhpe_tpu``'s loop beats.  Returns (state, global_step)."""
+    ``fhpe_tpu``'s loop beats.  Each iteration is a ``fhpe.train.step``
+    span holding ``fhpe.train.upload`` (``device_batch``) and
+    ``fhpe.train.meters`` (``utils/spans.py``).  Returns (state,
+    global_step)."""
     tb_names = tb_names or {"loss": "train_loss"}
     profiler = StepProfiler(epoch, logger)
     meters = WindowedMeters(value_keys=value_keys)
     t0, n_img, n = time.perf_counter(), 0, len(loader)
     for i, batch in enumerate(loader):
         profiler.before(i, device)
-        state, metrics = step_fn(state, device_batch(cfg, batch, device))
+        with span("fhpe.train.step"):
+            with span("fhpe.train.upload"):
+                on_device = device_batch(cfg, batch, device)
+            state, metrics = step_fn(state, on_device)
+            with span("fhpe.train.meters"):
+                meters.push(metrics, batch["joints"].shape[0])
+                n_img += batch["joints"].shape[0]
+                if i % cfg.PRINT_FREQ == 0:
+                    meters.drain()
+                    losses, accs = meters["loss"], meters["acc"]
+                    extra = "".join(f"{k} {meters[k].val:.5f}  "
+                                    for k in value_keys if k != "loss")
+                    logger.info(
+                        f"Epoch: [{epoch}][{i}/{n}]  "
+                        f"Time {meters.batch_time.val:.3f}s  "
+                        f"Speed {meters.speed:.1f} samples/s  "
+                        f"Loss {losses.val:.5f} ({losses.avg:.5f})  {extra}"
+                        f"Accuracy {accs.val:.3f} ({accs.avg:.3f})")
+                    if writer is not None:
+                        for k, name in tb_names.items():
+                            writer.add_scalar(name, meters[k].val,
+                                              global_step)
+                        writer.add_scalar("train_acc", accs.val, global_step)
+                    if output_dir and "output" in metrics and "image" in batch:
+                        debug_images(cfg, batch, metrics, os.path.join(
+                            output_dir, f"train_{epoch}_{i}"))
+            if watchdog is not None:
+                watchdog.beat()
         profiler.after(i, device, last=i == n - 1)
-        meters.push(metrics, batch["joints"].shape[0])
-        n_img += batch["joints"].shape[0]
-        if i % cfg.PRINT_FREQ == 0:
-            meters.drain()
-            losses, accs = meters["loss"], meters["acc"]
-            extra = "".join(f"{k} {meters[k].val:.5f}  "
-                            for k in value_keys if k != "loss")
-            logger.info(
-                f"Epoch: [{epoch}][{i}/{n}]  "
-                f"Time {meters.batch_time.val:.3f}s  "
-                f"Speed {meters.speed:.1f} samples/s  "
-                f"Loss {losses.val:.5f} ({losses.avg:.5f})  {extra}"
-                f"Accuracy {accs.val:.3f} ({accs.avg:.3f})")
-            if writer is not None:
-                for k, name in tb_names.items():
-                    writer.add_scalar(name, meters[k].val, global_step)
-                writer.add_scalar("train_acc", accs.val, global_step)
-            if output_dir and "output" in metrics and "image" in batch:
-                debug_images(cfg, batch, metrics, os.path.join(
-                    output_dir, f"train_{epoch}_{i}"))
-        if watchdog is not None:
-            watchdog.beat()
         global_step += 1
     if device.type == "cuda":
         torch.cuda.synchronize(device)

@@ -61,6 +61,7 @@ from ..ops.preprocess import normalize_images
 from ..utils.checkpoint import load_model_weights
 from ..utils.dtype import autocast, compute_dtype
 from ..utils.graph import CapturedStep, current_device, storage_fingerprint
+from ..utils.spans import span, spanned
 
 
 def xywh_to_center_scale(box, aspect_ratio: float, pixel_std: float = 200.0):
@@ -261,13 +262,15 @@ class Predictor:
             for dev in set(self.devices):
                 torch.cuda.synchronize(dev)
 
+    @spanned("fhpe.serve.request")
     def predict_crops(self, crops, centers, scales):
         """Model-input-sized uint8 crops -> keypoints in source coords.
 
         crops: (N, H, W, 3) uint8 (H, W = MODEL.IMAGE_SIZE);
         centers/scales: (N, 2) crop parametrization (the affine that
         produced each crop).  Returns (preds (N, J, 2), maxvals (N, J))
-        as float32 numpy, in the source-image coordinate frame.
+        as float32 numpy, in the source-image coordinate frame.  A call is
+        one ``fhpe.serve.request`` span (``utils/spans.py``).
         """
         crops = np.asarray(crops)
         if crops.dtype != np.uint8:
@@ -320,38 +323,46 @@ class Predictor:
         host memory, before it reads any back, so reading a chunk waits
         for that chunk and no later one.  On the CPU the replicas' batches
         are row blocks of the host slot and no stream is involved.
+
+        Spans (``utils/spans.py``), on the calling thread:
+        ``fhpe.serve.plan`` from entry until chunk 0's fill is handed to
+        the prefetch thread (the inverse transforms, slots, events,
+        streams), ``fhpe.serve.wait_fill`` while this thread waits for a
+        chunk's fill, ``fhpe.serve.readback`` around each chunk's read.
         """
         num_joints = int(self.cfg.MODEL.NUM_JOINTS)
         if n == 0:
             return (np.zeros((0, num_joints, 2), np.float32),
                     np.zeros((0, num_joints), np.float32))
-        inv = make_inverse_transforms(np.asarray(centers),
-                                      np.asarray(scales), self.heatmap_size)
-        b = self.batch_size
-        w, h = self.image_size
-        cuda = self.device.type == "cuda"
-        chunks = -(-n // b)
-        nslots = min(max(self.max_in_flight, 1) + 1, chunks)
-        per = b // len(self.devices)
-        rows = [slice(r * per, (r + 1) * per)
-                for r in range(len(self.devices))]
+        with span("fhpe.serve.plan"):
+            inv = make_inverse_transforms(
+                np.asarray(centers), np.asarray(scales), self.heatmap_size)
+            b = self.batch_size
+            w, h = self.image_size
+            cuda = self.device.type == "cuda"
+            chunks = -(-n // b)
+            nslots = min(max(self.max_in_flight, 1) + 1, chunks)
+            per = b // len(self.devices)
+            rows = [slice(r * per, (r + 1) * per)
+                    for r in range(len(self.devices))]
 
-        def new_slot(device, size, pin=False):
-            return (torch.empty((size, h, w, 3), dtype=torch.uint8,
-                                device=device, pin_memory=pin),
-                    torch.empty((size, 2, 3), dtype=torch.float32,
-                                device=device, pin_memory=pin))
+            def new_slot(device, size, pin=False):
+                return (torch.empty((size, h, w, 3), dtype=torch.uint8,
+                                    device=device, pin_memory=pin),
+                        torch.empty((size, 2, 3), dtype=torch.float32,
+                                    device=device, pin_memory=pin))
 
-        host = [new_slot("cpu", b, pin=cuda) for _ in range(nslots)]
-        if cuda:        # per replica r: [r][slot], or [r]
-            dev = [[new_slot(d, per) for _ in range(nslots)]
-                   for d in self.devices]
-            uploaded = [[torch.cuda.Event() for _ in range(nslots)]
+            host = [new_slot("cpu", b, pin=cuda) for _ in range(nslots)]
+            if cuda:        # per replica r: [r][slot], or [r]
+                dev = [[new_slot(d, per) for _ in range(nslots)]
+                       for d in self.devices]
+                uploaded = [[torch.cuda.Event() for _ in range(nslots)]
+                            for _ in self.devices]
+                read = [[torch.cuda.Event() for _ in range(nslots)]
                         for _ in self.devices]
-            read = [[torch.cuda.Event() for _ in range(nslots)]
-                    for _ in self.devices]
-            copy_streams = [torch.cuda.Stream(d) for d in self.devices]
-            currents = [torch.cuda.current_stream(d) for d in self.devices]
+                copy_streams = [torch.cuda.Stream(d) for d in self.devices]
+                currents = [torch.cuda.current_stream(d) for d in self.devices]
+            prefetch = self._executors()[0]
 
         def prep(k):
             """Fill chunk k into its host slot and start its uploads; the
@@ -397,6 +408,7 @@ class Predictor:
             done.record(currents[r])
             return host_out, done
 
+        @spanned("fhpe.serve.readback")
         def drain_one():
             cnt, outs = pending.popleft()
             for _, done in outs:
@@ -405,10 +417,10 @@ class Predictor:
             preds.append(torch.cat([o["preds"] for o, _ in outs])[:cnt])
             vals.append(torch.cat([o["maxvals"] for o, _ in outs])[:cnt])
 
-        prefetch = self._executors()[0]
         nxt = prefetch.submit(prep, 0)
         for k in range(chunks):
-            cnt, batches = nxt.result()
+            with span("fhpe.serve.wait_fill"):
+                cnt, batches = nxt.result()
             if k + 1 < chunks:
                 nxt = prefetch.submit(prep, k + 1)
             outs = []
@@ -441,6 +453,7 @@ class Predictor:
         return native_image.warp_affine(image, trans, self.image_size,
                                         out=out)
 
+    @spanned("fhpe.serve.request")
     def predict(self, image: np.ndarray, boxes: Sequence) -> np.ndarray:
         """Full-frame entry: person boxes -> keypoints.
 
@@ -450,7 +463,7 @@ class Predictor:
         in frame coordinates plus per-joint confidence.  Each chunk's
         crops are cut on the prefetch thread, by up to min(8, nproc)
         threads, while the device runs the chunk before; the pixels equal
-        :meth:`crop`'s.
+        :meth:`crop`'s.  A call is one ``fhpe.serve.request`` span.
         """
         image = np.asarray(image)
         if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:

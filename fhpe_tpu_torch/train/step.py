@@ -59,6 +59,7 @@ from ..ops.preprocess import normalize_images, warp_affine
 from ..parallel import all_reduce_mean_, all_reduce_sum_, broadcast_
 from ..utils.dtype import autocast, compute_dtype
 from ..utils.graph import CapturedStep, constant, storage_fingerprint
+from ..utils.spans import span
 from .loss import fpd_loss, stacked_mse_loss, stacked_ohkm_loss
 from .state import TrainState
 
@@ -221,17 +222,19 @@ def _compiled_train_step(body, teacher=None) -> Callable:
     -> metrics``: the student in train mode (the teacher in eval mode),
     the body captured on the card (:class:`CapturedStep`, over the
     student's, the teacher's and the optimizer's storage), and
-    ``state.step`` counted on the host.  ``.eager`` is the same step with
-    the body run as it is; ``.captured`` the :class:`CapturedStep`."""
+    ``state.step`` counted on the host; setting the modes is the
+    ``fhpe.train.modes`` span.  ``.eager`` is the same step with the body
+    run as it is; ``.captured`` the :class:`CapturedStep`."""
     modules = () if teacher is None else (teacher,)
     captured = CapturedStep(body, lambda state: storage_fingerprint(
         (state.model, *modules), state.optimizer))
 
     def wrap(run):
         def step(state: TrainState, batch):
-            state.model.train()
-            if teacher is not None:
-                teacher.eval()
+            with span("fhpe.train.modes"):
+                state.model.train()
+                if teacher is not None:
+                    teacher.eval()
             metrics = run(state, batch)
             state.step += 1
             return state, metrics

@@ -22,6 +22,7 @@ watchdog disarms there, ``utils/watchdog.py``).
 from __future__ import annotations
 
 import contextlib
+import functools
 import importlib
 import weakref
 from dataclasses import dataclass
@@ -29,6 +30,8 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from .spans import span
 
 # The kernels' launch counters: {kernel: (module of fhpe_tpu_torch.ops,
 # attribute)}.  Each wrapper counts its host calls; a capture's calls are
@@ -84,12 +87,19 @@ def launch_counters() -> dict:
                    attr) for name, (mod, attr) in LAUNCH_COUNTERS.items()}
 
 
+@functools.cache
+def _counters() -> tuple:
+    """The (module, attribute) pairs of :func:`launch_counters`, imported
+    once, on the first capture."""
+    return tuple(launch_counters().values())
+
+
 def _counter_values() -> list:
-    return [getattr(m, attr) for m, attr in launch_counters().values()]
+    return [getattr(m, attr) for m, attr in _counters()]
 
 
 def _add_launches(counts) -> None:
-    for (m, attr), n in zip(launch_counters().values(), counts):
+    for (m, attr), n in zip(_counters(), counts):
         if n:
             setattr(m, attr, getattr(m, attr) + n)
 
@@ -186,7 +196,11 @@ class CapturedStep:
     dtypes, grad mode and the autocast state.  The outputs
     returned are fresh tensors, never the graph's: a caller may keep them
     across steps.  ``eager`` is the body, for comparison and debugging;
-    ``captures`` counts the captures made.
+    ``captures`` counts the captures made.  A call's host work is three
+    spans (``utils/spans.py``): ``fhpe.graph.lookup`` (the signature and
+    the fingerprint's compare), then ``fhpe.graph.replay`` (copy-in,
+    replay, output clones) or ``fhpe.graph.capture`` (the eager run and
+    the capture).
     """
 
     def __init__(self, body: Callable[[object, dict], dict],
@@ -199,29 +213,34 @@ class CapturedStep:
         self.captures = 0
 
     def __call__(self, owner, batch: dict) -> dict:
-        device = _batch_device(batch)
-        capture = self._capture
+        with span("fhpe.graph.lookup"):
+            device = _batch_device(batch)
+            capture = self._capture
+            if capture is None and device.type == "cuda":
+                capture = cuda_capture
+            if capture is not None:
+                key = _signature(owner, batch, device)
+                g = self._graphs.get(key)
+                if g is not None and g.fingerprint != self._fingerprint(owner):
+                    g = None
         if capture is None:
-            if device.type != "cuda":
-                return self.eager(owner, batch)
-            capture = cuda_capture
+            return self.eager(owner, batch)
         # a capture records on the current device, and a replay's copies
         # and clones run there: make it the batch's
         with current_device(device):
-            key = _signature(owner, batch, device)
-            g = self._graphs.get(key)
-            if g is not None and g.fingerprint == self._fingerprint(owner):
-                for k, v in batch.items():
-                    g.static[k].copy_(v, non_blocking=True)
-                g.replay()
-                _add_launches(g.launches)
-                return _fresh(g.out)
+            if g is not None:
+                with span("fhpe.graph.replay"):
+                    for k, v in batch.items():
+                        g.static[k].copy_(v, non_blocking=True)
+                    g.replay()
+                    _add_launches(g.launches)
+                    return _fresh(g.out)
             # a stale graph's memory goes back before the new capture
             self._graphs.pop(key, None)
-            del g
             for fn in list(_before_capture):
                 fn()
-            return self._first_call(key, owner, batch, capture, device)
+            with span("fhpe.graph.capture"):
+                return self._first_call(key, owner, batch, capture, device)
 
     def _first_call(self, key, owner, batch, capture, device) -> dict:
         with torch.inference_mode(False):

@@ -241,7 +241,7 @@ def test_train_cli_against_fhpe_tpu(tmp_path):
 def test_train_then_test_cli(tmp_path, monkeypatch):
     """The run dir's files; the test CLI on ``final_state.pth`` gives the
     last validation's perf and predictions; FHPE_PROFILE_DIR writes a
-    trace (a short epoch: 3 steps)."""
+    trace with the step's spans (a short epoch: 3 steps)."""
     monkeypatch.setenv("FHPE_PROFILE_DIR", str(tmp_path / "prof"))
     cfg_path = _synthetic_cfg(tmp_path, DATASET={"SYNTH_SIZE": 12})
     with _recorded(train_cli, "validate") as c:
@@ -251,7 +251,9 @@ def test_train_then_test_cli(tmp_path, monkeypatch):
                  "config.yaml"):
         assert (run / name).exists(), name
     assert not [f for f in os.listdir(run) if f.endswith(".tmp")]
-    assert (tmp_path / "prof" / "trace.json").exists()
+    trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
+    assert any(e.get("name") == "fhpe.train.step"
+               for e in trace["traceEvents"])
     assert json.loads((run / ck.META_NAME).read_text())["epoch"] == 1
     saved = ck.load_checkpoint_file(str(run / ck.CKPT_NAME))
     assert {"epoch", "model", "state_dict", "best_state_dict", "perf",
