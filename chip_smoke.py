@@ -2136,9 +2136,9 @@ def idle_shares(feeds: dict, device) -> dict:
 
 
 def upload_ms(cfg, host: dict, device, reps: int = 5):
-    """``device_batch``'s upload of the host batch ``host`` (pageable
-    memory, synchronous): (median host ms of ``reps``, MB, the device
-    batch)."""
+    """``device_batch``'s upload of the host batch ``host`` (on the card
+    through its pinned staging ring), each ended by a synchronise:
+    (median host ms of ``reps``, MB, the device batch)."""
     from fhpe_tpu_torch.cli.common import device_batch
     walls = []
     for _ in range(reps):
@@ -2252,8 +2252,8 @@ def phase_loader(state, device, totals, label, root: Path) -> None:
     rates = feed_rates(feeds, ("loader", "resident", "resident", "loader"),
                        n_img, device)
     idle = idle_shares(feeds, device)
-    # the upload device_batch makes (pageable host memory, synchronous),
-    # and the captured step's copy of it into its static inputs (device to
+    # the upload device_batch makes (pinned staging, then non-blocking
+    # copies, timed to their end), and the captured step's copy of it into its static inputs (device to
     # device), by CUDA events
     host = next(iter(train_loader))
     up_ms, up_mb, dev = upload_ms(scfg, host, device)

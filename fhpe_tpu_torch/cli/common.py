@@ -24,7 +24,9 @@ alone, or one of N under ``torchrun --nproc_per_node N``
 * :func:`train_batch_keys` and :func:`eval_batch_transform` (copies,
   pinned by ``tests/test_torch_port_hygiene.py``): what a train or eval
   step takes from a host batch;
-* :func:`device_batch`: a host batch as tensors on an explicit device;
+* :func:`device_batch`: a host batch as tensors on an explicit device,
+  on the card through a ring of pinned staging buffers
+  (:class:`PinnedRing`) whose copies run while the host goes on;
 * :func:`validate`: the eval loop (reference function.py:189-332) with
   ``make_eval_step`` (on the card a graph captured on the first batch and
   replayed for the rest: every batch is padded to one size), the
@@ -254,17 +256,120 @@ def eval_batch_transform(cfg):
     return tf
 
 
+# device_batch's uploads in this process, counted as utils/graph.py counts
+# kernel launches: batches staged through the pinned ring (a CUDA device),
+# batches handed over as zero-copy views (the CPU), and restages whose
+# slot's previous copy was still pending, so that the host waited for it:
+# the sign that the host ran ahead of the card.
+ring_uploads = 0
+cpu_uploads = 0
+ring_waits = 0
+
+# staging slots of the ring: the host runs at most this many steps ahead
+RING_SLOTS = 2
+
+
+class _StreamEvent:
+    """A CUDA event recorded on ``device``'s current stream."""
+
+    def __init__(self, device):
+        self.device = device
+        self.event = torch.cuda.Event()
+
+    def record(self) -> None:
+        self.event.record(torch.cuda.current_stream(self.device))
+
+    def query(self) -> bool:
+        return self.event.query()
+
+    def synchronize(self) -> None:
+        self.event.synchronize()
+
+
+def _pinned_like(array: np.ndarray, device) -> torch.Tensor:
+    """A page-locked host tensor of ``array``'s shape and dtype, pinned
+    from ``device``'s context."""
+    dtype = torch.from_numpy(np.empty(0, array.dtype)).dtype
+    with torch.cuda.device(device):
+        return torch.empty(array.shape, dtype=dtype, pin_memory=True)
+
+
+class _Slot:
+    def __init__(self, key, buffers: dict, done):
+        self.key = key
+        self.buffers = buffers                  # pinned tensors
+        self.views = {k: b.numpy() for k, b in buffers.items()}
+        self.done = done                        # recorded after the copies
+
+
+class PinnedRing:
+    """Host batches -> fresh tensors on a CUDA device through ``slots``
+    page-locked staging buffers used in turn.
+
+    Each upload copies the host arrays into its slot (a host memcpy), then
+    starts non-blocking copies of the slot into new device tensors on the
+    device's current stream and records the slot's event after them; the
+    host goes on while the card copies and runs the work queued before.
+    Before a slot is restaged, the host waits for that slot's event alone.
+    A slot is keyed by the device and each array's key, shape and dtype,
+    and made again when that changes (an epoch's short last batch, eval
+    batches).  The tensors returned never alias the slots: a caller may
+    keep them across uploads.  ``pin`` (array, device -> host tensor) and
+    ``event`` (device -> an object with ``record``, ``query`` and
+    ``synchronize``) are the CUDA calls; tests pass stand-ins.  One thread
+    uploads."""
+
+    def __init__(self, slots: int = RING_SLOTS, pin=_pinned_like,
+                 event=_StreamEvent):
+        self._pin, self._event = pin, event
+        self._slots = [None] * slots
+        self._turn = 0
+
+    def upload(self, host: dict, device) -> dict:
+        global ring_uploads, ring_waits
+        i = self._turn
+        self._turn = (i + 1) % len(self._slots)
+        slot = self._slots[i]
+        if slot is not None and not slot.done.query():
+            ring_waits += 1
+            slot.done.synchronize()
+        key = (device, tuple((k, v.shape, v.dtype.str)
+                             for k, v in host.items()))
+        if slot is None or slot.key != key:
+            slot = self._slots[i] = _Slot(
+                key, {k: self._pin(v, device) for k, v in host.items()},
+                self._event(device))
+        for k, v in host.items():
+            np.copyto(slot.views[k], v)
+        out = {k: b.to(device, non_blocking=True, copy=True)
+               for k, b in slot.buffers.items()}
+        slot.done.record()
+        ring_uploads += 1
+        return out
+
+
+_ring = PinnedRing()
+
+
 def device_batch(cfg, batch, device, for_eval=False):
     """Host batch dict -> tensors on ``device``, the minimal transfer set
     of a train step (:func:`train_batch_keys`) or an eval step
-    (:func:`eval_batch_transform`).  On the card a captured step then
-    copies these into its graph's static inputs, device to device: the
-    upload stays here, so the eager bodies and the CPU path take the same
-    batch."""
+    (:func:`eval_batch_transform`).  On a CUDA device the arrays go
+    through the process's :class:`PinnedRing` (new device tensors, copies
+    still running when this returns, on the device's current stream); on
+    the CPU they are zero-copy views of the host arrays.  On the card a
+    captured step then copies these into its graph's static inputs,
+    device to device: the upload stays here, so the eager bodies and the
+    CPU path take the same batch."""
+    global cpu_uploads
     if for_eval:
         host = eval_batch_transform(cfg)(batch)
     else:
         host = {k: batch[k] for k in train_batch_keys(cfg)}
+    device = torch.device(device)
+    if device.type == "cuda":
+        return _ring.upload(host, device)
+    cpu_uploads += 1
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in host.items()}
 
