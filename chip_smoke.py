@@ -2757,8 +2757,8 @@ def phase_fpd_cli(device, totals, label, mpii: Path) -> None:
         # (PR 13's route): where its PCKh differs, capturable Adam's
         # float32 bias correction made it (phase 27 holds graph against
         # eager with the same Adam bit-equal)
-        def default_adam(cfg, params):
-            return torch.optim.Adam(list(params), lr=float(cfg.TRAIN.LR),
+        def default_adam(cfg, model):
+            return torch.optim.Adam(model.parameters(), lr=float(cfg.TRAIN.LR),
                                     betas=(0.9, 0.999), eps=1e-8)
 
         eager_step = fpd_cli.make_fpd_train_step

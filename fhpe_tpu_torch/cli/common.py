@@ -19,11 +19,13 @@ alone, or one of N under ``torchrun --nproc_per_node N``
   only (``fhpe_tpu``'s processes share one host's files the same way);
 * :func:`build_loaders`: db -> ``PoseDataSource`` -> ``BatchLoader``,
   train (this process's slice of each global batch of
-  ``TRAIN.BATCH_SIZE_PER_GPU`` x world size) and validation (unsharded,
+  ``TRAIN.BATCH_SIZE_PER_GPU`` x world size; with drop path, each batch
+  with its keep flags, ``data/drop_path.py``) and validation (unsharded,
   ``TEST.BATCH_SIZE_PER_GPU``: rank 0 validates alone);
 * :func:`train_batch_keys` and :func:`eval_batch_transform` (copies,
   pinned by ``tests/test_torch_port_hygiene.py``): what a train or eval
-  step takes from a host batch;
+  step takes from a host batch; :func:`train_step_keys` adds the keep
+  flags to the first;
 * :func:`device_batch`: a host batch as tensors on an explicit device,
   on the card through a ring of pinned staging buffers
   (:class:`PinnedRing`) whose copies run while the host goes on;
@@ -52,8 +54,9 @@ import torch
 
 from ..config import load_config
 from ..data import BatchLoader, PoseDataSource, build_db, dataset_meta
+from ..data import drop_path
 from ..geometry.flip import flip_pair_permutation
-from ..models.pose_resnet import deconv_padding
+from ..models.common import deconv_padding
 from ..ops.decode import make_inverse_transforms
 from ..parallel import (backend, broadcast_object, initialize, initialized,
                         is_main_process, process_count, process_index,
@@ -139,11 +142,12 @@ def create_run_logger(cfg, cfg_name: str, phase: str):
 
 def check_supported(cfg) -> None:
     """Refuse, before the run directory is made, a config the port cannot
-    run as ``fhpe_tpu`` does: PoseResNet's ``NUM_DECONV_KERNELS`` 3
-    (``models/pose_resnet.py::deconv_padding``, which the model refuses
-    too).  A ``TPU.NUM_DEVICES`` that does not fit the process group is
-    refused by ``create_train_state``."""
-    if cfg.MODEL.NAME == "pose_resnet":
+    run as ``fhpe_tpu`` does: ``NUM_DECONV_KERNELS`` 3 in a deconv
+    decoder, PoseResNet's or ViTPose's (``models/common.py::
+    deconv_padding``, which the model refuses too).  A
+    ``TPU.NUM_DEVICES`` that does not fit the process group is refused by
+    ``create_train_state``."""
+    if "NUM_DECONV_KERNELS" in cfg.MODEL.EXTRA:
         for kernel in cfg.MODEL.EXTRA.NUM_DECONV_KERNELS:
             deconv_padding(int(kernel))
 
@@ -208,6 +212,8 @@ def build_loaders(cfg, synthetic_dir: str | None = None, train: bool = True):
             host_targets=not cfg.TPU.DEVICE_PREPROCESS,
             num_threads=max(2, cfg.WORKERS), seed=seed,
             process_index=process_index(), process_count=process_count())
+        if drop_path.drop_path_rate(cfg) > 0:
+            train_loader = drop_path.KeepFlags(train_loader, cfg, seed)
 
     val_src = PoseDataSource(cfg, db_val, is_train=False,
                              flip_pairs=meta["flip_pairs"],
@@ -230,6 +236,16 @@ def train_batch_keys(cfg):
         keys += ["joints", "joints_vis"]
     else:
         keys += ["target", "target_weight"]
+    return keys
+
+
+def train_step_keys(cfg):
+    """What :func:`device_batch` uploads for a train step: the copy's
+    :func:`train_batch_keys`, and the drop-path keep flags where the
+    student drops paths (``data/drop_path.py``, ViTPose's)."""
+    keys = train_batch_keys(cfg)
+    if drop_path.drop_path_rate(cfg) > 0:
+        keys = keys + [drop_path.KEY]
     return keys
 
 
@@ -353,7 +369,7 @@ _ring = PinnedRing()
 
 def device_batch(cfg, batch, device, for_eval=False):
     """Host batch dict -> tensors on ``device``, the minimal transfer set
-    of a train step (:func:`train_batch_keys`) or an eval step
+    of a train step (:func:`train_step_keys`) or an eval step
     (:func:`eval_batch_transform`).  On a CUDA device the arrays go
     through the process's :class:`PinnedRing` (new device tensors, copies
     still running when this returns, on the device's current stream); on
@@ -365,7 +381,7 @@ def device_batch(cfg, batch, device, for_eval=False):
     if for_eval:
         host = eval_batch_transform(cfg)(batch)
     else:
-        host = {k: batch[k] for k in train_batch_keys(cfg)}
+        host = {k: batch[k] for k in train_step_keys(cfg)}
     device = torch.device(device)
     if device.type == "cuda":
         return _ring.upload(host, device)

@@ -154,7 +154,7 @@ def warm_start(cfg, state, logger):
     ``.msgpack``; epoch and optimizer come back only through AUTO_RESUME."""
     weights = load_model_weights(cfg.TRAIN.CHECKPOINT, cfg)
     state.model.load_state_dict(weights)
-    state.optimizer = make_optimizer(cfg, state.model.parameters())
+    state.optimizer = make_optimizer(cfg, state.model)
     state.step = 0
     logger.info(f"=> warm-started weights from {cfg.TRAIN.CHECKPOINT}")
     return state

@@ -4,7 +4,11 @@ A copy of ``fhpe_tpu/config/node.py`` and ``fhpe_tpu/config/defaults.py``
 (pure Python + pyyaml): importing ``fhpe_tpu`` runs its package
 ``__init__``, which imports JAX whenever ``FHPE_PLATFORM`` is set, so the
 port cannot lean on it.  ``tests/test_torch_port_hygiene.py`` pins this
-copy equal to ``fhpe_tpu.config`` on every ``experiments/**/*.yaml``.
+copy equal to ``fhpe_tpu.config`` on every ``experiments/**/*.yaml``, but
+for the keys of :data:`PORT_ONLY` (``TRAIN.LAYER_DECAY`` and
+``TRAIN.CLIP_GRAD_NORM``, whose defaults change nothing) and the
+``vit_pose`` model, which only the port has (its experiment files are
+under ``experiments_torch/``).
 
 Same semantics as the original: attribute access, defaults < YAML file <
 dotted ``KEY VALUE`` overrides, yacs-style literal decoding of strings,
@@ -259,6 +263,9 @@ def _base() -> CfgNode:
     c.TRAIN.SEED = 0
     c.TRAIN.EVAL_FREQ = 1
     c.TRAIN.CKPT_FREQ = 1
+    # the port's own keys (PORT_ONLY): ViTPose's recipe
+    c.TRAIN.LAYER_DECAY = 1.0       # adamw: rate x LAYER_DECAY ** depth
+    c.TRAIN.CLIP_GRAD_NORM = 0.0    # > 0: clip the gradient's norm first
 
     c.TEST = CfgNode()
     c.TEST.BATCH_SIZE_PER_GPU = 32
@@ -331,13 +338,40 @@ def _hourglass_extra() -> CfgNode:
     return e
 
 
+def _vit_pose_extra() -> CfgNode:
+    """ViTPose-B (Xu et al. 2022, ``ViTPose_base_coco_256x192.py``): the
+    plain ViT backbone and the classic deconv decoder."""
+    e = CfgNode(new_allowed=True)
+    e.PATCH_SIZE = 16
+    e.PATCH_PADDING = 2
+    e.EMBED_DIM = 768
+    e.DEPTH = 12
+    e.NUM_HEADS = 12
+    e.MLP_RATIO = 4
+    e.QKV_BIAS = True
+    e.DROP_PATH_RATE = 0.3
+    e.DECONV_WITH_BIAS = False
+    e.NUM_DECONV_LAYERS = 2
+    e.NUM_DECONV_FILTERS = [256, 256]
+    e.NUM_DECONV_KERNELS = [4, 4]
+    e.FINAL_CONV_KERNEL = 1
+    return e
+
+
 # Per-architecture EXTRA defaults (reference lib/config/models.py).
 MODEL_EXTRAS = {
     "pose_resnet": _pose_resnet_extra,
     "pose_hrnet": _pose_hrnet_extra,
     "pose_high_resolution_net": _pose_hrnet_extra,
     "hourglass": _hourglass_extra,
+    "vit_pose": _vit_pose_extra,
 }
+
+# What the port's schema has and ``fhpe_tpu``'s has not: keys by group,
+# whose defaults leave every other model's run as it was, and the
+# architectures whose EXTRA only the port builds.
+PORT_ONLY = {"TRAIN": ("LAYER_DECAY", "CLIP_GRAD_NORM")}
+PORT_ONLY_MODELS = ("vit_pose",)
 
 
 def get_default_config() -> CfgNode:
@@ -382,5 +416,5 @@ def load_config(cfg_file: str, opts: list | None = None,
     return cfg
 
 
-__all__ = ["CfgNode", "FrozenError", "MODEL_EXTRAS", "get_default_config",
-           "load_config"]
+__all__ = ["CfgNode", "FrozenError", "MODEL_EXTRAS", "PORT_ONLY",
+           "PORT_ONLY_MODELS", "get_default_config", "load_config"]

@@ -10,7 +10,7 @@ eps 1e-5), and ``nn.Conv2d``'s default initialization is the one
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -119,6 +119,70 @@ def conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1,
 
 def batch_norm(ch: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(ch, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+
+def deconv_padding(kernel: int):
+    """(padding, output_padding) of a stride-2 transposed conv that doubles
+    H and W, as the reference picks them.
+
+    Kernel 3 (padding 1, output_padding 1) is refused: ``fhpe_tpu``'s
+    ``Deconv`` (flax ``ConvTranspose``, padding SAME, with the importer's
+    flipped kernel) equals torch's transposed conv for kernels 4 and 2
+    but not for 3, where the two place the output a pixel apart (ROADMAP.md
+    queue C).  Every config in ``experiments/`` uses kernel 4.
+    """
+    if kernel == 4:
+        return 1, 0
+    if kernel == 2:
+        return 0, 0
+    if kernel == 3:
+        raise NotImplementedError(
+            "NUM_DECONV_KERNELS 3: fhpe_tpu's Deconv does not match torch's "
+            "ConvTranspose2d(k=3, padding=1, output_padding=1) (ROADMAP.md "
+            "queue C); use 4 or 2")
+    raise ValueError(f"NUM_DECONV_KERNELS must be 4, 3 or 2; got {kernel}")
+
+
+def deconv_decoder(inplanes: int, num_joints: int, filters: Sequence[int],
+                   kernels: Sequence[int], with_bias: bool = False,
+                   final_kernel: int = 1) -> Tuple[nn.Sequential, nn.Conv2d]:
+    """The classic decoder of PoseResNet and ViTPose: ``(deconv_layers,
+    final_layer)``, a ``ConvTranspose2d`` (stride 2) + BatchNorm + ReLU per
+    entry of ``filters`` (at ``deconv_layers.{3i,3i+1}``), then the conv
+    with bias that writes the heatmaps."""
+    layers = []
+    for kernel, width in zip(kernels, filters):
+        padding, output_padding = deconv_padding(kernel)
+        layers += [nn.ConvTranspose2d(inplanes, width, kernel, stride=2,
+                                      padding=padding,
+                                      output_padding=output_padding,
+                                      bias=with_bias),
+                   batch_norm(width), nn.ReLU()]
+        inplanes = width
+    return nn.Sequential(*layers), nn.Conv2d(
+        inplanes, num_joints, final_kernel,
+        padding=1 if final_kernel == 3 else 0)
+
+
+def init_decoder(modules) -> None:
+    """The reference's decoder init: conv and transposed-conv kernels
+    normal(0, 0.001), their biases 0, BatchNorm weight 1 and bias 0."""
+    for m in modules:
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            nn.init.normal_(m.weight, std=0.001)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.BatchNorm2d):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+
+
+def drop_rates(depth: int, rate: float) -> np.ndarray:
+    """Stochastic depth's drop probability of each of ``depth`` blocks,
+    linear from 0 to ``rate`` (float64): the model scales a kept branch by
+    its complement, the data layer (``data/drop_path.py``) draws the keep
+    flags from it."""
+    return np.linspace(0.0, float(rate), depth)
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:

@@ -28,7 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import BasicBlock, Bottleneck, batch_norm
+from .common import (BasicBlock, Bottleneck, batch_norm, deconv_decoder,
+                     init_decoder)
 
 RESNET_SPEC = {
     18: (BasicBlock, [2, 2, 2, 2]),
@@ -37,28 +38,6 @@ RESNET_SPEC = {
     101: (Bottleneck, [3, 4, 23, 3]),
     152: (Bottleneck, [3, 8, 36, 3]),
 }
-
-
-def deconv_padding(kernel: int):
-    """(padding, output_padding) of a stride-2 transposed conv that doubles
-    H and W, as the reference picks them.
-
-    Kernel 3 (padding 1, output_padding 1) is refused: ``fhpe_tpu``'s
-    ``Deconv`` (flax ``ConvTranspose``, padding SAME, with the importer's
-    flipped kernel) equals torch's transposed conv for kernels 4 and 2
-    but not for 3, where the two place the output a pixel apart (ROADMAP.md
-    queue C).  Every config in ``experiments/`` uses kernel 4.
-    """
-    if kernel == 4:
-        return 1, 0
-    if kernel == 2:
-        return 0, 0
-    if kernel == 3:
-        raise NotImplementedError(
-            "NUM_DECONV_KERNELS 3: fhpe_tpu's Deconv does not match torch's "
-            "ConvTranspose2d(k=3, padding=1, output_padding=1) (ROADMAP.md "
-            "queue C); use 4 or 2")
-    raise ValueError(f"NUM_DECONV_KERNELS must be 4, 3 or 2; got {kernel}")
 
 
 class PoseResNet(nn.Module):
@@ -90,33 +69,16 @@ class PoseResNet(nn.Module):
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
             inplanes = out_ch
 
-        deconv = []
-        for i in range(num_deconv_layers):
-            kernel, filters = num_deconv_kernels[i], num_deconv_filters[i]
-            padding, output_padding = deconv_padding(kernel)
-            deconv += [nn.ConvTranspose2d(inplanes, filters, kernel, stride=2,
-                                          padding=padding,
-                                          output_padding=output_padding,
-                                          bias=deconv_with_bias),
-                       batch_norm(filters), nn.ReLU()]
-            inplanes = filters
-        self.deconv_layers = nn.Sequential(*deconv)
-        self.final_layer = nn.Conv2d(
-            inplanes, num_joints, final_conv_kernel,
-            padding=1 if final_conv_kernel == 3 else 0)
+        self.deconv_layers, self.final_layer = deconv_decoder(
+            inplanes, num_joints, num_deconv_filters[:num_deconv_layers],
+            num_deconv_kernels[:num_deconv_layers], deconv_with_bias,
+            final_conv_kernel)
         self.init_weights()
 
     def init_weights(self) -> None:
         """Reference init (from scratch): conv and transposed-conv kernels
         normal(0, 0.001), their biases 0, BatchNorm weight 1 and bias 0."""
-        for m in self.modules():
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
-                nn.init.normal_(m.weight, std=0.001)
-                if m.bias is not None:
-                    nn.init.zeros_(m.bias)
-            elif isinstance(m, nn.BatchNorm2d):
-                nn.init.ones_(m.weight)
-                nn.init.zeros_(m.bias)
+        init_decoder(self.modules())
 
     def forward(self, x) -> torch.Tensor:
         x = F.relu(self.bn1(self.conv1(x)))

@@ -7,8 +7,11 @@ the card, once per input signature, and replayed
 (``utils/graph.py::CapturedStep``); on the CPU the body runs as it is.
 Every step keeps its body as ``step.eager``:
 
-* :func:`make_train_step`: forward, loss (MSE or OHKM), backward,
-  optimizer step, PCK counts on the device;
+* :func:`make_train_step`: forward, loss (MSE or OHKM), backward, the
+  gradient's norm clipped (``TRAIN.CLIP_GRAD_NORM`` > 0), optimizer step,
+  PCK counts on the device; a batch's ``drop_path_keep`` flags go to the
+  student's forward (ViTPose's stochastic depth, drawn by the data
+  layer);
 * :func:`make_fpd_train_step`: adds the teacher forward (eval mode, no
   gradient: ``fhpe_tpu``'s deliberate fix of the reference's undetached
   teacher, function.py:120-122) and the ``(1-alpha)*pose + alpha*kd``
@@ -195,11 +198,27 @@ def _with_debug(outputs: dict, debug_outputs: bool, output, target) -> dict:
     return outputs
 
 
-def _update(state: TrainState, loss) -> None:
+def _update(state: TrainState, loss, clip: float = 0.0) -> None:
+    """Backward, the gradients averaged over the ranks, clipped to a total
+    norm of ``clip`` where it is positive (``TRAIN.CLIP_GRAD_NORM``: one
+    foreach norm and scale on the device, no read of the card), then the
+    optimizer's step."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
     all_reduce_mean_([p.grad for p in state.model.parameters()])
+    if clip > 0:
+        nn.utils.clip_grad_norm_(state.model.parameters(), clip,
+                                 foreach=True)
     state.optimizer.step()
+
+
+def _student(model, image, batch):
+    """The student's forward, handed the batch's drop-path keep flags
+    where it carries them (``drop_path_keep``, ViTPose's)."""
+    keep = batch.get("drop_path_keep")
+    if keep is None:
+        return model(image)
+    return model(image, drop_path_keep=keep)
 
 
 def _reconcile_bn(model: nn.Module, bn_stats: str) -> None:
@@ -263,6 +282,7 @@ def make_train_step(cfg, prepare=None, bn_stats=None,
     use_tw = bool(cfg.LOSS.USE_TARGET_WEIGHT)
     use_ohkm = bool(cfg.LOSS.USE_OHKM)
     topk = int(cfg.LOSS.TOPK)
+    clip = float(cfg.TRAIN.CLIP_GRAD_NORM)
     prepare = prepare or _identity_prepare
     bn_stats = _resolve_bn_stats(cfg, bn_stats)
 
@@ -271,14 +291,14 @@ def make_train_step(cfg, prepare=None, bn_stats=None,
         model = state.model
         image = _input(model, batch["image"])
         with autocast(compute_dtype(cfg, image.device), image.device):
-            outputs = model(image)
+            outputs = _student(model, image, batch)
         stacked, final = _stacked(outputs, is_multi_output(model))
         tw = batch["target_weight"] if use_tw else None
         if use_ohkm:
             loss = stacked_ohkm_loss(stacked, batch["target"], tw, topk)
         else:
             loss = stacked_mse_loss(stacked, batch["target"], tw)
-        _update(state, loss)
+        _update(state, loss, clip)
         _reconcile_bn(model, bn_stats)
         metrics = _metrics({"loss": loss}, final, batch["target"])
         return _with_debug(metrics, debug_outputs, final, batch["target"])
@@ -307,6 +327,7 @@ def make_fpd_train_step(cfg, teacher, teacher_cfg=None, prepare=None,
     use_tw = bool(cfg.LOSS.USE_TARGET_WEIGHT)
     use_tw_kd = bool(tcfg.LOSS.USE_TARGET_WEIGHT)
     alpha = float(cfg.KD.ALPHA)
+    clip = float(cfg.TRAIN.CLIP_GRAD_NORM)
     prepare = prepare or _identity_prepare
     bn_stats = _resolve_bn_stats(cfg, bn_stats)
     teacher_multi = is_multi_output(teacher)
@@ -321,13 +342,13 @@ def make_fpd_train_step(cfg, teacher, teacher_cfg=None, prepare=None,
         teacher_final = t_out[-1] if teacher_multi else t_out
 
         with autocast(compute_dtype(cfg, image.device), image.device):
-            outputs = model(image)
+            outputs = _student(model, image, batch)
         stacked, final = _stacked(outputs, is_multi_output(model))
         loss, pose, kd = fpd_loss(
             stacked, teacher_final, batch["target"], batch["target_weight"],
             alpha, use_target_weight_pose=use_tw,
             use_target_weight_kd=use_tw_kd)
-        _update(state, loss)
+        _update(state, loss, clip)
         _reconcile_bn(model, bn_stats)
         metrics = _metrics({"loss": loss, "pose_loss": pose,
                             "kd_loss": kd}, final, batch["target"])

@@ -317,12 +317,12 @@ def test_replaced_storage_captures_again(replace):
         state.model.load_state_dict(
             {k: v.clone() for k, v in state.model.state_dict().items()},
             assign=True)
-        state.optimizer = make_optimizer(scfg, state.model.parameters())
+        state.optimizer = make_optimizer(scfg, state.model)
     elif replace == "parameter_data":
         p = next(state.model.parameters())
         p.data = p.data.clone()
     elif replace == "new_optimizer":
-        state.optimizer = make_optimizer(scfg, state.model.parameters())
+        state.optimizer = make_optimizer(scfg, state.model)
     else:
         state.model.eval()
     ref = copy.deepcopy(state)

@@ -4,6 +4,7 @@ and evaluator, MPII PCKh, the LR schedule, the host data path: db
 builders, filters, loader, zip reader, the warp's C text) stay equal to
 the originals."""
 
+import copy
 import glob
 import inspect
 import os
@@ -49,6 +50,16 @@ EXPERIMENTS = sorted(os.path.relpath(p, REPO) for p in glob.glob(
     os.path.join(REPO, "experiments", "**", "*.yaml"), recursive=True))
 
 
+def shared(d: dict) -> dict:
+    """A config dict less the keys only the port's schema has
+    (``config.PORT_ONLY``)."""
+    d = copy.deepcopy(d)
+    for group, keys in config.PORT_ONLY.items():
+        for k in keys:
+            d[group].pop(k)
+    return d
+
+
 def test_port_imports_no_jax():
     """In a fresh interpreter (this one already holds JAX via conftest),
     with ``FHPE_PLATFORM`` set: ``import fhpe_tpu`` imports JAX then, so
@@ -91,23 +102,34 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("path", EXPERIMENTS)
 def test_config_copy_equal(path):
-    got = config.load_config(os.path.join(REPO, path)).to_dict()
-    assert got == config_jax.load_config(os.path.join(REPO, path)).to_dict()
+    """Equal on every key both schemas have (the port's own keys,
+    ``config.PORT_ONLY``, are set by no file of ``experiments/``)."""
+    path = os.path.join(REPO, path)
+    got = shared(config.load_config(path).to_dict())
+    assert got == config_jax.load_config(path).to_dict()
 
 
 def test_config_defaults_and_overrides_equal():
-    assert config.get_default_config().to_dict() == \
-        config_jax.get_default_config().to_dict()
-    assert config.MODEL_EXTRAS.keys() == config_jax.MODEL_EXTRAS.keys()
+    """The port's defaults are ``fhpe_tpu``'s plus its own keys, whose
+    defaults leave a run as it was (no layer decay, no clipping), and its
+    own models' EXTRA."""
+    defaults = config.get_default_config().to_dict()
+    assert shared(defaults) == config_jax.get_default_config().to_dict()
+    assert defaults["TRAIN"]["LAYER_DECAY"] == 1.0
+    assert defaults["TRAIN"]["CLIP_GRAD_NORM"] == 0.0
+    assert config.MODEL_EXTRAS.keys() - set(config.PORT_ONLY_MODELS) == \
+        config_jax.MODEL_EXTRAS.keys()
     for name, make in config.MODEL_EXTRAS.items():
-        assert make().to_dict() == config_jax.MODEL_EXTRAS[name]().to_dict()
+        if name not in config.PORT_ONLY_MODELS:
+            assert make().to_dict() == \
+                config_jax.MODEL_EXTRAS[name]().to_dict()
     path = os.path.join(REPO, "experiments/mpii/hourglass/"
                         "hg4_128_student.yaml")
     opts = ["TEST.FLIP_TEST", "True", "GPUS", "(0,1)",
             "TPU.COMPUTE_DTYPE", "float32", "MODEL.IMAGE_SIZE", "[128,256]"]
     got = config.load_config(path, opts, data_dir="data")
-    assert got.to_dict() == config_jax.load_config(path, opts,
-                                                   data_dir="data").to_dict()
+    assert shared(got.to_dict()) == config_jax.load_config(
+        path, opts, data_dir="data").to_dict()
     assert got.is_frozen()
     with pytest.raises(KeyError):
         config.load_config(path, ["TEST.NO_SUCH_KEY", "1"])
