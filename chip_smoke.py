@@ -103,9 +103,8 @@ Phases; any failure raises and exits non-zero:
     kernel, its plain version and cuDNN's weight gradient
     (``aten.convolution_backward``, timed, never used);
 12. the FPD train step's eager body at full width (bf16, batch 32,
-    DEAD_BIAS_SKIP as bench.py trains): P4 launches == 59 and decode
-    launches == 2 per
-    step, finite losses, the loss falling over 10 steps on one batch,
+    DEAD_BIAS_SKIP as bench.py trains): P4 launches == 59, BatchNorm
+    kernel calls == 182 and decode launches == 2 per step, finite losses, the loss falling over 10 steps on one batch,
     warm train images/s, and a profile (idle share, device ops per step,
     kernel ms by group), and P4 on each of the three train steps' P4
     shape sets against cuDNN wgrad on the same shapes;
@@ -140,9 +139,18 @@ Phases; any failure raises and exits non-zero:
     version;
 16. ``BranchChainFn``'s gradients against autograd through the plain
     chain, float32, at one W32 chain shape;
+16b. the train-mode BatchNorm kernels (``ops/csrc/batch_norm.cu``)
+    against their plain versions at every distinct BatchNorm shape of the
+    hourglass and W32 student steps and edge cases, bf16 and float32, the
+    ReLU on and off, one from an unaligned address: forward (y, batch and
+    running statistics) and backward (dx, dgamma, dbeta) within the bars
+    of ``tools/profile_bn.py``, two calls bit-equal, the apply pass
+    bit-equal to the forward; then device times of the kernels on each
+    shape and on each step's BatchNorm calls, in turns with ATen's native
+    kernels (yardstick only), beside the bytes' bound;
 17. the FPD W48 -> W32 train step's eager body at full width (bf16,
     batch 32): per
-    step 26 P5e, 26 P5t, 212 P4 and 2 decode launches, finite losses
+    step 26 P5e, 26 P5t, 212 P4, 84 BatchNorm and 2 decode launches, finite losses
     falling over 5 steps on one batch, warm train images/s with P5 and
     with every chain unrouted, a profile of each (idle share, device ops
     per step, kernel ms by group, P5's device ms per step) and one step's
@@ -367,6 +375,7 @@ OKS_MARGIN = 1e-5          # float32 vs float64 OKS-NMS may differ inside it
 TRAIN_BATCH = 32
 TRAIN_STEPS = 10           # on one repeated batch: the loss must fall
 P4_PER_STEP = 59           # 3x3 stride-1 convs of the student (tests pin it)
+BN_PER_STEP = 182          # its train-mode BatchNorms (tests pin them)
 K1_PER_TRAIN_STEP = 2      # the PCK counts' argmaxes: output and target
 K1_PER_EVAL_BATCH = 3      # the decode and the two PCK argmaxes
 MPII_PEOPLE = 56           # two eval batches of 32, the last one padded
@@ -405,6 +414,7 @@ WGRAD_STEP_PARAMS_OFF = 1e-4
 # P4 gets the chains' 8 x 26 = 208 filter gradients and layer1's 4.
 HRNET_CHAINS = 26
 HRNET_P4_PER_STEP = 212
+HRNET_BN_PER_STEP = 84     # W32's train-mode BatchNorms outside the chains
 HRNET_TRAIN_STEPS = 5      # on one repeated batch: the loss must fall
 # float32 FPD W48 -> W32 step parity (full width, batch 2, TF32 off), as
 # (loss rtol, BN stats, moments relative L2, worst moment tensor, share of
@@ -428,6 +438,7 @@ HRNET_P5_STEP_BARS = (1e-5, 1e-4, 0.03, 0.5, 1e-3)
 # train step.
 RN50_YAML = REPO / "experiments/coco/resnet/res50_256x192_d256x3_adam_lr1e-3.yaml"
 RN50_ROUTED = 13
+RN50_BN_PER_STEP = 56      # its train-mode BatchNorms (53 trunk, 3 decoder)
 RN50_TRAIN_STEPS = 5       # on one repeated batch: the loss must fall
 # conv3x3_fwd against its plain version: the bars of
 # fhpe_tpu_torch/tools/profile_conv.py (REL_TOL).
@@ -560,6 +571,10 @@ KERNELS = {
     # float32 out: P1 (pallas_conv_probe.py:40,75)
     "conv3x3_fwd_f32": {"source": "fhpe_tpu_torch/ops/csrc/conv3x3_fwd.cu",
                         "replaces": "scripts/probe/pallas_conv_probe.py:40"},
+    # train-mode BatchNorm (+ ReLU), forward and backward: no TPU kernel
+    # stands behind it (fhpe_tpu leaves BatchNorm to XLA)
+    "batch_norm_train": {"source": "fhpe_tpu_torch/ops/csrc/batch_norm.cu",
+                         "replaces": None},
 }
 # kernel group of P5's launches in tools/profile_serve.py::KERNEL_GROUPS
 P5_GROUP = "branch chain kernel (P5)"
@@ -1468,6 +1483,7 @@ def phase_fpd_train(device, totals, label):
 
     _, counts = main_path_run(totals, run)
     want = expected(device, conv3x3_wgrad=P4_PER_STEP * TRAIN_STEPS,
+                    batch_norm_train=BN_PER_STEP * TRAIN_STEPS,
                     decode_heatmaps=K1_PER_TRAIN_STEP * TRAIN_STEPS)
     if counts != want or len(shapes) != P4_PER_STEP:
         raise AssertionError(f"train: launches {counts} for {TRAIN_STEPS} "
@@ -1676,6 +1692,42 @@ def phase_chain_grad(device) -> None:
                              f"{rel[worst]} > {CHAIN_GRAD_REL_L2}")
 
 
+def phase_bn_kernel(device) -> dict:
+    """The train-mode BatchNorm kernels against their plain versions at
+    every student shape and edge cases (``tools/profile_bn.py``), then
+    device times per shape and per step set against ATen's kernels."""
+    from fhpe_tpu_torch.tools import profile_bn as pb
+
+    chk = pb.check_cases(device)
+    log("batchnorm", f"kernels against plain on {chk['cases']} cases "
+        f"(bf16, float32; ReLU on and off; one unaligned): " + ", ".join(
+            f"{k} {v:.3g}" for k, v in chk.items() if k != "cases")
+        + "; two calls bit-equal, apply pass bit-equal to the forward")
+    err = max(chk["bfloat16 max_abs_err"], chk["float32 max_abs_err"])
+    out = {"max_abs_err": err, "ms": None, "plain_ms": None,
+           "library_ms": None, "bound_ms": None, "bound_by": "bytes"}
+    if device.type != "cuda":
+        return out
+    for name, r in pb.time_per_shape(device).items():
+        log("batchnorm", f"{name} bf16 forward + ReLU + backward: kernels "
+            f"{r['ms'][0]:.4f}/{r['ms'][1]:.4f} ms, ATen "
+            f"{r['library_ms'][0]:.4f}/{r['library_ms'][1]:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['share_of_bound']:.1f}%)")
+    for name, r in pb.time_step_sets(device).items():
+        log("batchnorm", f"{name} step's {r['calls']} calls"
+            + (f" and {r['backward_only']} chain backwards"
+               if r["backward_only"] else "")
+            + f": kernels {r['ms'][0]:.3f}/{r['ms'][1]:.3f} ms, ATen "
+            f"{r['library_ms'][0]:.3f}/{r['library_ms'][1]:.3f} ms, bound "
+            f"{r['bound_ms']:.3f} ms ({r['share_of_bound']:.1f}%)")
+        if name == "hourglass":
+            out.update(ms=sum(r["ms"]) / 2,
+                       plain_ms=sum(r["library_ms"]) / 2,
+                       library_ms=sum(r["library_ms"]) / 2,
+                       bound_ms=r["bound_ms"])
+    return out
+
+
 def fused_chains(model):
     from fhpe_tpu_torch.models.pose_hrnet import BranchChain
     return [m for m in model.modules()
@@ -1741,6 +1793,7 @@ def phase_hrnet_fpd_train(device, totals, label):
     per_step = {"branch_chain_eval": HRNET_CHAINS,
                 "branch_chain_train": HRNET_CHAINS,
                 "conv3x3_wgrad": HRNET_P4_PER_STEP,
+                "batch_norm_train": HRNET_BN_PER_STEP,
                 "decode_heatmaps": K1_PER_TRAIN_STEP}
     want = expected(device, **{k: v * HRNET_TRAIN_STEPS
                                for k, v in per_step.items()})
@@ -2206,6 +2259,7 @@ def phase_loader(state, device, totals, label, root: Path) -> None:
     losses, counts = main_path_run(totals, train)
     steps = len(losses)
     want = expected(device, conv3x3_wgrad=P4_PER_STEP * steps,
+                    batch_norm_train=BN_PER_STEP * steps,
                     decode_heatmaps=K1_PER_TRAIN_STEP * steps)
     if steps < 4 or counts != want:
         raise AssertionError(f"loader: {steps} steps, launches {counts},"
@@ -2413,6 +2467,7 @@ def phase_rn50_train(device, totals, label):
 
     _, counts = main_path_run(totals, run)
     per_step = {"conv3x3_fwd": RN50_ROUTED, "conv3x3_wgrad": RN50_ROUTED,
+                "batch_norm_train": RN50_BN_PER_STEP,
                 "decode_heatmaps": K1_PER_TRAIN_STEP}
     want = expected(device, **{k: v * RN50_TRAIN_STEPS
                                for k, v in per_step.items()})
@@ -2695,6 +2750,7 @@ def phase_fpd_cli(device, totals, label, mpii: Path) -> None:
 
         def want(steps, vals):
             return expected(device, conv3x3_wgrad=P4_PER_STEP * steps,
+                            batch_norm_train=BN_PER_STEP * steps,
                             decode_heatmaps=K1_PER_TRAIN_STEP * steps
                             + K1_PER_EVAL_BATCH * per_batch * vals)
 
@@ -2809,6 +2865,7 @@ def phase_rn50_cli(device, totals, label) -> None:
             return expected(
                 device, conv3x3_fwd=RN50_ROUTED * (steps + 2 * batches * vals),
                 conv3x3_wgrad=RN50_ROUTED * steps,
+                batch_norm_train=RN50_BN_PER_STEP * steps,
                 decode_heatmaps=K1_PER_TRAIN_STEP * steps
                 + K1_PER_EVAL_BATCH * batches * vals,
                 oks_nms_segments=vals)
@@ -3131,7 +3188,8 @@ def phase_graphs(device, totals, label) -> None:
         lambda: make_fpd_train_step(scfg, teacher, tcfg,
                                     prepare=make_batch_preprocessor(scfg)),
         train_batch(scfg, TRAIN_BATCH, seed=7, device=device), (teacher,),
-        {"conv3x3_wgrad": P4_PER_STEP, "decode_heatmaps": K1_PER_TRAIN_STEP},
+        {"conv3x3_wgrad": P4_PER_STEP, "batch_norm_train": BN_PER_STEP,
+         "decode_heatmaps": K1_PER_TRAIN_STEP},
         totals, label)
 
     # MPII eval of the hourglass student (phase 14's step), two batches
@@ -3167,6 +3225,7 @@ def phase_graphs(device, totals, label) -> None:
         {"branch_chain_eval": HRNET_CHAINS,
          "branch_chain_train": HRNET_CHAINS,
          "conv3x3_wgrad": HRNET_P4_PER_STEP,
+         "batch_norm_train": HRNET_BN_PER_STEP,
          "decode_heatmaps": K1_PER_TRAIN_STEP}, totals, label)
     del teacher, student_cpu
     torch.cuda.empty_cache()
@@ -3195,6 +3254,7 @@ def phase_graphs(device, totals, label) -> None:
         lambda: make_train_step(cfg, prepare=make_batch_preprocessor(cfg)),
         train_batch(cfg, TRAIN_BATCH, seed=27, device=device), (),
         {"conv3x3_fwd": RN50_ROUTED, "conv3x3_wgrad": RN50_ROUTED,
+         "batch_norm_train": RN50_BN_PER_STEP,
          "decode_heatmaps": K1_PER_TRAIN_STEP}, totals, label)
     torch.cuda.empty_cache()
 
@@ -3450,6 +3510,7 @@ def phase_canvas_step(device, totals, label, root: Path) -> None:
     (fed, repeated), counts = main_path_run(totals, train)
     steps = len(fed) + len(repeated)
     want = expected(device, conv3x3_wgrad=P4_PER_STEP * steps,
+                    batch_norm_train=BN_PER_STEP * steps,
                     decode_heatmaps=K1_PER_TRAIN_STEP * steps)
     if len(fed) < 6 or counts != want:
         raise AssertionError(f"canvas: {steps} steps, launches {counts}, "
@@ -3684,6 +3745,7 @@ def phase_ddp_step(device, totals, label) -> None:
             metrics, counts = main_path_run(totals,
                                             lambda: run(ddp, ddp_state))
         want = expected(device, conv3x3_wgrad=P4_PER_STEP * DDP_STEPS,
+                        batch_norm_train=BN_PER_STEP * DDP_STEPS,
                         decode_heatmaps=K1_PER_TRAIN_STEP * DDP_STEPS)
         captures = ddp.captured.captures
         if counts != want or captures != on_card(device, 1):
@@ -3713,6 +3775,7 @@ def phase_ddp_step(device, totals, label) -> None:
             events, counts = main_path_run(totals, lambda: trace_events(
                 lambda: ddp(ddp_state, batches[0])))
             want = expected(device, conv3x3_wgrad=P4_PER_STEP,
+                            batch_norm_train=BN_PER_STEP,
                             decode_heatmaps=K1_PER_TRAIN_STEP)
             if counts != want:
                 raise AssertionError(f"ddp-step: one profiled replay "
@@ -4109,6 +4172,7 @@ def phase_hrnet_cli(device, totals, label) -> None:
                 + 2 * HRNET_CHAINS * batches * vals,
                 branch_chain_train=HRNET_CHAINS * steps,
                 conv3x3_wgrad=HRNET_P4_PER_STEP * steps,
+                batch_norm_train=HRNET_BN_PER_STEP * steps,
                 decode_heatmaps=K1_PER_TRAIN_STEP * steps
                 + K1_PER_EVAL_BATCH * batches * vals,
                 oks_nms_segments=vals)
@@ -4580,6 +4644,7 @@ def phase_stall_restart(device, totals, label) -> None:
         run = cli_run(fpd_cli, argv_b, totals, "make_fpd_train_step")
         check_cli("msgpack-resume", run, expected(
             device, conv3x3_wgrad=P4_PER_STEP * 2,
+            batch_norm_train=BN_PER_STEP * 2,
             decode_heatmaps=K1_PER_TRAIN_STEP * 2
             + K1_PER_EVAL_BATCH * per_batch * 3), 3, 2)
         read = [m for m in run["lines"] if "resume checkpoint" in m]
@@ -4661,6 +4726,7 @@ def main() -> int:
              **phase_conv_kernel(device)}
     phase_nms_coco_scale(device)
     phase_chain_grad(device)
+    stats["batch_norm_train"] = phase_bn_kernel(device)
     totals = Counter()
 
     student = serve_cfg(STUDENT_YAML)

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.batch_norm import BatchNormFn
 from ..ops.conv3x3_fwd import conv3x3_fwd
 from ..ops.conv_wgrad import conv3x3_wgrad
 from ..utils.dtype import autocast
@@ -117,8 +118,50 @@ def conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1,
                      padding=(kernel - 1) // 2, bias=bias)
 
 
-def batch_norm(ch: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(ch, eps=BN_EPS, momentum=BN_MOMENTUM)
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` that, with ``relu``, also applies the ReLU that
+    follows it, and whose train-mode forward with grad on the card is the
+    BatchNorm kernel pair (``ops/batch_norm.py::BatchNormFn``): the same
+    running-statistics update, ``num_batches_tracked`` and momentum as
+    ``nn.BatchNorm2d``.  In eval mode, under ``no_grad`` and on the CPU it
+    is ``nn.BatchNorm2d``'s own forward (then ``F.relu``).  Same
+    parameters, buffers and ``state_dict`` keys."""
+
+    def __init__(self, num_features: int, *args, relu: bool = False,
+                 **kwargs):
+        super().__init__(num_features, *args, **kwargs)
+        self.relu = relu
+
+    def extra_repr(self) -> str:
+        return super().extra_repr() + (", relu=True" if self.relu else "")
+
+    def takes_kernel(self, x) -> bool:
+        """Whether this call runs the kernels: train mode, grad on, on the
+        card."""
+        return self.training and torch.is_grad_enabled() and x.is_cuda
+
+    def forward(self, x):
+        if not self.takes_kernel(x):
+            y = super().forward(x)
+            return F.relu(y) if self.relu else y
+        self._check_input_dim(x)
+        factor = 0.0 if self.momentum is None else self.momentum
+        if self.track_running_stats and self.num_batches_tracked is not None:
+            self.num_batches_tracked.add_(1)
+            if self.momentum is None:   # cumulative moving average
+                factor = 1.0 / float(self.num_batches_tracked)
+        tracked = self.track_running_stats
+        return BatchNormFn.apply(
+            x, self.weight, self.bias,
+            self.running_mean if tracked else None,
+            self.running_var if tracked else None, factor, self.eps,
+            self.relu)
+
+
+def batch_norm(ch: int, relu: bool = False) -> BatchNorm2d:
+    """BatchNorm over ``ch`` channels (eps 1e-5, momentum 0.1), with the
+    ReLU that directly follows it when ``relu``."""
+    return BatchNorm2d(ch, eps=BN_EPS, momentum=BN_MOMENTUM, relu=relu)
 
 
 def deconv_padding(kernel: int):
@@ -147,9 +190,10 @@ def deconv_decoder(inplanes: int, num_joints: int, filters: Sequence[int],
                    kernels: Sequence[int], with_bias: bool = False,
                    final_kernel: int = 1) -> Tuple[nn.Sequential, nn.Conv2d]:
     """The classic decoder of PoseResNet and ViTPose: ``(deconv_layers,
-    final_layer)``, a ``ConvTranspose2d`` (stride 2) + BatchNorm + ReLU per
-    entry of ``filters`` (at ``deconv_layers.{3i,3i+1}``), then the conv
-    with bias that writes the heatmaps."""
+    final_layer)``, a ``ConvTranspose2d`` (stride 2) + BatchNorm with its
+    ReLU per entry of ``filters`` (at ``deconv_layers.{3i,3i+1}``; an
+    ``nn.Identity`` at ``3i+2``, where the reference's ReLU sits), then the
+    conv with bias that writes the heatmaps."""
     layers = []
     for kernel, width in zip(kernels, filters):
         padding, output_padding = deconv_padding(kernel)
@@ -157,7 +201,7 @@ def deconv_decoder(inplanes: int, num_joints: int, filters: Sequence[int],
                                       padding=padding,
                                       output_padding=output_padding,
                                       bias=with_bias),
-                   batch_norm(width), nn.ReLU()]
+                   batch_norm(width, relu=True), nn.Identity()]
         inplanes = width
     return nn.Sequential(*layers), nn.Conv2d(
         inplanes, num_joints, final_kernel,
@@ -231,7 +275,7 @@ class BasicBlock(nn.Module):
         super().__init__()
         self.conv1 = conv(inplanes, planes, 3, stride, bias=False,
                           fwd_kernel=fwd_kernel)
-        self.bn1 = batch_norm(planes)
+        self.bn1 = batch_norm(planes, relu=True)
         self.conv2 = conv(planes, planes, 3, bias=False,
                           fwd_kernel=fwd_kernel)
         self.bn2 = batch_norm(planes)
@@ -239,7 +283,7 @@ class BasicBlock(nn.Module):
                            if downsample else None)
 
     def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.bn1(self.conv1(x))
         out = self.bn2(self.conv2(out))
         residual = x if self.downsample is None else self.downsample(x)
         return F.relu(out + residual)
@@ -256,18 +300,18 @@ class Bottleneck(nn.Module):
                  downsample: bool = False, fwd_kernel: bool = False):
         super().__init__()
         self.conv1 = conv(inplanes, planes, 1, bias=False)
-        self.bn1 = batch_norm(planes)
+        self.bn1 = batch_norm(planes, relu=True)
         self.conv2 = conv(planes, planes, 3, stride, bias=False,
                           fwd_kernel=fwd_kernel)
-        self.bn2 = batch_norm(planes)
+        self.bn2 = batch_norm(planes, relu=True)
         self.conv3 = conv(planes, planes * 4, 1, bias=False)
         self.bn3 = batch_norm(planes * 4)
         self.downsample = (_downsample(inplanes, planes * 4, stride)
                            if downsample else None)
 
     def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn1(self.conv1(x))
+        out = self.bn2(self.conv2(out))
         out = self.bn3(self.conv3(out))
         residual = x if self.downsample is None else self.downsample(x)
         return F.relu(out + residual)

@@ -22,7 +22,6 @@ from __future__ import annotations
 from typing import List
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from .common import batch_norm, conv, max_pool_2x2, upsample_nearest
@@ -40,11 +39,11 @@ class Bottleneck(nn.Module):
 
     def __init__(self, inplanes: int, planes: int, biased: bool = True):
         super().__init__()
-        self.bn1 = batch_norm(inplanes)
+        self.bn1 = batch_norm(inplanes, relu=True)
         self.conv1 = conv(inplanes, planes, 1, bias=biased)
-        self.bn2 = batch_norm(planes)
+        self.bn2 = batch_norm(planes, relu=True)
         self.conv2 = conv(planes, planes, 3, bias=biased)
-        self.bn3 = batch_norm(planes)
+        self.bn3 = batch_norm(planes, relu=True)
         self.conv3 = conv(planes, planes * 2, 1, bias=biased)
         self.downsample = None
         if inplanes != planes * 2:
@@ -52,9 +51,9 @@ class Bottleneck(nn.Module):
                 conv(inplanes, planes * 2, 1, bias=biased))
 
     def forward(self, x):
-        out = self.conv1(F.relu(self.bn1(x)))
-        out = self.conv2(F.relu(self.bn2(out)))
-        out = self.conv3(F.relu(self.bn3(out)))
+        out = self.conv1(self.bn1(x))
+        out = self.conv2(self.bn2(out))
+        out = self.conv3(self.bn3(out))
         residual = x if self.downsample is None else self.downsample(x)
         return out + residual
 
@@ -114,7 +113,7 @@ class HourglassNet(nn.Module):
         self.num_stacks = num_stacks
 
         self.conv1 = conv(3, inplanes, 7, stride=2, bias=b)
-        self.bn1 = batch_norm(inplanes)
+        self.bn1 = batch_norm(inplanes, relu=True)
         self.layer1 = residual_chain(inplanes, inplanes, 1, b)
         self.layer2 = residual_chain(inplanes * 2, inplanes * 2, 1, b)
         self.layer3 = residual_chain(inplanes * 4, feats, 1, b)
@@ -124,8 +123,7 @@ class HourglassNet(nn.Module):
         self.res = nn.ModuleList(residual_chain(ch, feats, num_blocks, b)
                                  for _ in range(num_stacks))
         self.fc = nn.ModuleList(
-            nn.Sequential(conv(ch, ch, 1, bias=b), batch_norm(ch),
-                          nn.ReLU(inplace=True))
+            nn.Sequential(conv(ch, ch, 1, bias=b), batch_norm(ch, relu=True))
             for _ in range(num_stacks))
         # score heads keep their bias: no BatchNorm follows the heatmaps
         self.score = nn.ModuleList(conv(ch, num_joints, 1, bias=True)
@@ -136,7 +134,7 @@ class HourglassNet(nn.Module):
                                     for _ in range(num_stacks - 1))
 
     def forward(self, x) -> List[torch.Tensor]:
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = self.bn1(self.conv1(x))
         x = self.layer1(x)
         x = max_pool_2x2(x)
         x = self.layer2(x)

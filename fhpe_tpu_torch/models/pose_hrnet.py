@@ -36,11 +36,8 @@ BLOCKS = {"BASIC": BasicBlock, "BOTTLENECK": Bottleneck}
 
 def _conv_bn(in_ch: int, out_ch: int, kernel: int, stride: int,
              relu: bool) -> nn.Sequential:
-    layers = [conv(in_ch, out_ch, kernel, stride, bias=False),
-              batch_norm(out_ch)]
-    if relu:
-        layers.append(nn.ReLU())
-    return nn.Sequential(*layers)
+    return nn.Sequential(conv(in_ch, out_ch, kernel, stride, bias=False),
+                         batch_norm(out_ch, relu=relu))
 
 
 class BranchChain(nn.Sequential):
@@ -199,9 +196,9 @@ class PoseHighResolutionNet(nn.Module):
                  num_joints: int = 17, final_conv_kernel: int = 1):
         super().__init__()
         self.conv1 = conv(3, 64, 3, 2, bias=False)
-        self.bn1 = batch_norm(64)
+        self.bn1 = batch_norm(64, relu=True)
         self.conv2 = conv(64, 64, 3, 2, bias=False)
-        self.bn2 = batch_norm(64)
+        self.bn2 = batch_norm(64, relu=True)
         self.layer1 = _branch(Bottleneck, 64, 64, 4)
 
         prev = [256]
@@ -235,8 +232,8 @@ class PoseHighResolutionNet(nn.Module):
                 nn.init.zeros_(m.bias)
 
     def forward(self, x) -> torch.Tensor:
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.relu(self.bn2(self.conv2(x)))
+        x = self.bn1(self.conv1(x))
+        x = self.bn2(self.conv2(x))
         xs = [self.layer1(x)]
         for s in (2, 3, 4):
             trans = getattr(self, f"transition{s - 1}")

@@ -11,8 +11,9 @@ reference's published ``.pth`` files load as they are:
 * ``layer{i}.{b}.{conv,bn}{1,2,3}`` (Bottleneck for 50/101/152,
   BasicBlock for 18/34, stride on the 3x3 conv), ``layer{i}.0.downsample.
   {0,1}`` where the first block changes stride or width;
-* ``deconv_layers.{3i,3i+1}``: ``ConvTranspose2d`` and BatchNorm (ReLU at
-  ``3i+2``);
+* ``deconv_layers.{3i,3i+1}``: ``ConvTranspose2d`` and BatchNorm, which
+  applies the ReLU the reference has at ``3i+2`` (an ``nn.Identity``
+  here);
 * ``final_layer``: the conv with bias that writes the heatmaps.
 
 Every 3x3 stride-1 conv of the trunk (13 in PoseResNet-50) runs its
@@ -56,7 +57,7 @@ class PoseResNet(nn.Module):
         super().__init__()
         block, layers = RESNET_SPEC[num_layers]
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = batch_norm(64)
+        self.bn1 = batch_norm(64, relu=True)
         inplanes = 64
         for i, (planes, stride) in enumerate(zip((64, 128, 256, 512),
                                                  (1, 2, 2, 2))):
@@ -81,8 +82,7 @@ class PoseResNet(nn.Module):
         init_decoder(self.modules())
 
     def forward(self, x) -> torch.Tensor:
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.max_pool2d(x, 3, 2, 1)
+        x = F.max_pool2d(self.bn1(self.conv1(x)), 3, 2, 1)
         for i in range(1, 5):
             x = getattr(self, f"layer{i}")(x)
         out = self.final_layer(self.deconv_layers(x))

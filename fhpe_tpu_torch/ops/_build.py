@@ -133,6 +133,16 @@ def load_library() -> ctypes.CDLL:
     lib.fhpe_conv3x3_fwd.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, ci,
                                      ctypes.POINTER(ci), vp]
     lib.fhpe_conv3x3_fwd.restype = ci
+    cf, plan = ctypes.c_float, ctypes.POINTER(ci)
+    lib.fhpe_batch_norm_train.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci,
+                                          ci, ci, ci, plan, cf, cf, ci, vp]
+    lib.fhpe_batch_norm_train.restype = ci
+    lib.fhpe_batch_norm_apply.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci,
+                                          ci, plan, ci, vp]
+    lib.fhpe_batch_norm_apply.restype = ci
+    lib.fhpe_batch_norm_backward.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
+                                             vp, ci, ci, ci, ci, plan, ci, vp]
+    lib.fhpe_batch_norm_backward.restype = ci
     lib.fhpe_cuda_error_string.argtypes = [ci]
     lib.fhpe_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -36,7 +36,8 @@ float64 inputs).  Two forms each:
 :func:`branch_chain_eval` and :func:`branch_chain_train` send CUDA tensors
 to the kernels (they never fall back) and CPU tensors to the plain
 versions.  :class:`BranchChainFn` is the train-mode chain with its
-gradient: BatchNorm's backward from ATen, the input gradients from
+gradient: BatchNorm's backward from the BatchNorm kernels
+(``ops/batch_norm.py``), the input gradients from
 ``aten.convolution_backward`` and the filter gradients from the P4 kernel
 (``ops/conv_wgrad.py``); the JAX package has no backward kernel for P5.
 """
@@ -50,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build, conv_wgrad
+from .batch_norm import batch_norm_apply, batch_norm_backward
 from .conv3x3_fwd import Bf16Plan, bf16_plan
 
 BN_EPS = 1e-5
@@ -288,12 +290,12 @@ class BranchChainFn(torch.autograd.Function):
     ``apply(x, eps, *weights, *gammas, *betas)`` (2 nb of each) ->
     ``(y, mean, var)``, mean and var (2 nb, C) not differentiable.  The
     forward is :func:`branch_chain_train`.  The backward walks the blocks
-    in reverse: ReLU masks from the saved outputs, BatchNorm's backward
-    (``aten.native_batch_norm_backward``) from the saved pre-BN outputs and
-    batch statistics, the input gradients through
-    ``aten.convolution_backward``, the filter gradients through P4
-    (``conv_wgrad.conv3x3_wgrad``), ``a = relu(bn1(u))`` recomputed for
-    conv2's.  Each gradient comes back in its input's dtype (a bf16 weight
+    in reverse: the block's ReLU mask from the saved outputs, BatchNorm's
+    backward (``batch_norm.batch_norm_backward``, bn1's with its ReLU's
+    mask) from the saved pre-BN outputs and batch statistics, the input
+    gradients through ``aten.convolution_backward``, the filter gradients
+    through P4 (``conv_wgrad.conv3x3_wgrad``), ``a = relu(bn1(u))``
+    recomputed for conv2's by the BatchNorm kernels' apply pass.  Each gradient comes back in its input's dtype (a bf16 weight
     copy gets a bf16 gradient, as under autocast).
     """
 
@@ -302,20 +304,20 @@ class BranchChainFn(torch.autograd.Function):
         n = len(params) // 3
         weights, gammas, betas = params[:n], params[n:2 * n], params[2 * n:]
         out = branch_chain_train(x, weights, gammas, betas, eps)
-        ctx.eps, ctx.n = eps, n
-        ctx.save_for_backward(out.y, out.mean, out.var, out.inv,
-                              *out.inputs, *out.pre, *params)
+        ctx.n = n
+        ctx.save_for_backward(out.y, out.mean, out.inv, *out.inputs,
+                              *out.pre, *params)
         ctx.mark_non_differentiable(out.mean, out.var)
         return out.y, out.mean, out.var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
-        n, nb, eps = ctx.n, ctx.n // 2, ctx.eps
+        n, nb = ctx.n, ctx.n // 2
         saved = ctx.saved_tensors
-        y, mean, var, inv = saved[:4]
-        inputs = saved[4:4 + nb]
-        pre = saved[4 + nb:4 + nb + n]
-        params = saved[4 + nb + n:]
+        y, mean, inv = saved[:3]
+        inputs = saved[3:3 + nb]
+        pre = saved[3 + nb:3 + nb + n]
+        params = saved[3 + nb + n:]
         weights, gammas, betas = params[:n], params[n:2 * n], params[2 * n:]
         outputs = (*inputs[1:], y)
         need_w = ctx.needs_input_grad[2:2 + n]
@@ -329,10 +331,9 @@ class BranchChainFn(torch.autograd.Function):
                 grad, inp, weight, None, [1, 1], [1, 1], [1, 1], False,
                 [0, 0], 1, [True, False, False])[0]
 
-        def bn_back(grad, t, i):
-            return aten.native_batch_norm_backward(
-                grad, t, gammas[i], None, None, mean[i], inv[i], True, eps,
-                [True, need_g[i], need_b[i]])
+        def bn_back(grad, t, i, relu):
+            return batch_norm_backward(grad, t, mean[i], inv[i], gammas[i],
+                                       betas[i], relu)
 
         dy = dy.contiguous()
         with torch.autocast(dy.device.type, enabled=False):
@@ -340,17 +341,18 @@ class BranchChainFn(torch.autograd.Function):
                 i1, i2 = 2 * k, 2 * k + 1
                 x, u, v = inputs[k], pre[i1], pre[i2]
                 dz = aten.threshold_backward(dy, outputs[k], 0)
-                dv, dgs[i2], dbs[i2] = bn_back(dz, v, i2)
-                a = F.relu(F.batch_norm(u, mean[i1], var[i1], gammas[i1],
-                                        betas[i1], False, 0.0, eps))
+                dv, dgs[i2], dbs[i2] = bn_back(dz, v, i2, False)
+                a = batch_norm_apply(u, mean[i1], inv[i1], gammas[i1],
+                                     betas[i1], relu=True)
                 da = conv_dx(dv, a, weights[i2])
                 if need_w[i2]:
                     dws[i2] = conv_wgrad.conv3x3_wgrad(a, dv).to(
                         weights[i2].dtype)
-                du, dgs[i1], dbs[i1] = bn_back(
-                    aten.threshold_backward(da, a, 0), u, i1)
+                du, dgs[i1], dbs[i1] = bn_back(da, u, i1, True)
                 if need_w[i1]:
                     dws[i1] = conv_wgrad.conv3x3_wgrad(x, du).to(
                         weights[i1].dtype)
                 dy = dz + conv_dx(du, x, weights[i1])
+        dgs = [g if need else None for g, need in zip(dgs, need_g)]
+        dbs = [b if need else None for b, need in zip(dbs, need_b)]
         return (dy, None, *dws, *dgs, *dbs)

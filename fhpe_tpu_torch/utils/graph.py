@@ -46,6 +46,7 @@ LAUNCH_COUNTERS = {
     "branch_chain_train": ("branch_chain", "branch_chain_train_launches"),
     "conv3x3_fwd": ("conv3x3_fwd", "conv3x3_fwd_launches"),
     "conv3x3_fwd_f32": ("conv3x3_fwd", "conv3x3_fwd_f32_launches"),
+    "batch_norm_train": ("batch_norm", "batch_norm_launches"),
 }
 
 _constants: Dict[tuple, torch.Tensor] = {}
