@@ -343,6 +343,8 @@ from unittest import mock
 
 import numpy as np
 
+from fhpe_tpu_torch.utils.profiling import BF16_OPS_PER_S, bound
+
 REPO = Path(__file__).resolve().parent
 START = time.perf_counter()
 STUDENT_YAML = REPO / "experiments/mpii/hourglass/hg4_128_student.yaml"
@@ -539,10 +541,6 @@ STALL_LAUNCH_TIMEOUT_S = 300
 # the next batch, the epoch's synchronize
 CUDA_WAITS = ("drain", "device_batch", "synchronize")
 
-# Card peaks for the bound (NVIDIA H100 SXM data sheet, dense).
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12    # tensor cores, bf16 in, float32 accumulate
 # float32 operations K2 does: per (i, j, joint) 2 subtractions, 4
 # multiplications, 2 additions and exp (counted as 2); per (i, j) the
 # denominator (2 additions, 2 divisions) and the final division.
@@ -607,16 +605,6 @@ def sync(device) -> None:
     import torch
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S
-          ) -> dict:
-    """The least time the card could take: bytes over the HBM rate or
-    operations over the peak rate for their type (float32 by default),
-    whichever is larger."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
-    return {"bound_ms": max(by_bytes, by_ops) * 1e3,
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 # -- launch counts of the main path -----------------------------------------

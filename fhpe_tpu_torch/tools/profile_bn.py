@@ -38,10 +38,9 @@ from ..ops import _build
 from ..ops import batch_norm as bn
 from ..ops.batch_norm_cases import (EDGE_SHAPES, STEP_SHAPES, W32_CHAIN_STEP,
                                     bn_inputs)
-from ..utils.profiling import (card_label, device_events, device_ms,
+from ..utils.profiling import (bound, card_label, device_events, device_ms,
                                ptxas_report)
 
-HBM_BYTES_PER_S = 3.35e12
 MOMENTUM, EPS = 0.1, 1e-5
 # The kernels against their plain versions.  Forward: y within FWD_TOL of
 # max|y| (bf16: one rounding step of bf16, 2^-7 of a value, where the two
@@ -156,7 +155,7 @@ def bound_ms(calls, backward_only=()) -> float:
     the backward alone (6 bytes)."""
     values = sum(n * c * h * w for n, c, h, w in calls)
     values_b = sum(n * c * h * w for n, c, h, w in backward_only)
-    return (10 * values + 6 * values_b) / HBM_BYTES_PER_S * 1e3
+    return bound(10 * values + 6 * values_b, 0)["bound_ms"]
 
 
 def time_calls(device, calls, backward_only=(), iters=5) -> dict:

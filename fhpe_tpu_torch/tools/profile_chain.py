@@ -47,13 +47,11 @@ from ..ops.branch_chain_cases import (BLOCKS, BRANCH_CHAINS, EDGE_CASES,
                                       chain_params)
 from ..ops.conv3x3_fwd import bf16_plan
 from ..utils.dtype import autocast
-from ..utils.profiling import (card_label, device_events, device_ms,
-                               ptxas_report, tensor_core_counts)
+from ..utils.profiling import (BF16_OPS_PER_S, bound, card_label,
+                               device_events, device_ms, ptxas_report,
+                               tensor_core_counts)
 from .train_parity import tf32_off
 
-# Card peaks for the bound (NVIDIA H100 SXM data sheet, dense).
-HBM_BYTES_PER_S = 3.35e12
-BF16_OPS_PER_S = 989e12    # tensor cores, bf16 in, float32 accumulate
 TIMED = (32, 32, 64, 48)   # W32's branch 0 at batch 32, 4 blocks
 # P5 against its plain version on the card, TF32 off.  In bf16 both round
 # at four places per block and sum each conv in another order, so where an
@@ -119,10 +117,7 @@ def chain_bound(shapes, train: bool, blocks=BLOCKS) -> dict:
         act = 2 * b * c * h * w
         written = (3 * blocks if train else 1) * act
         nbytes += act + written + 2 * blocks * (2 * 9 * c * c + 4 * 2 * c)
-    by_bytes = nbytes / HBM_BYTES_PER_S
-    by_ops = chain_flop(shapes, blocks) / BF16_OPS_PER_S
-    return {"bound_ms": max(by_bytes, by_ops) * 1e3,
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+    return bound(nbytes, chain_flop(shapes, blocks), BF16_OPS_PER_S)
 
 
 def _diff(got, ref):
@@ -263,12 +258,12 @@ def time_step_set(device, iters=3) -> dict:
     p1, m1, m2, p2 = (device_ms(on(i), iters) for i in (0, 2, 2, 0))
     halves = {e: device_ms(on(0, (e,)), iters) for e in ENTRIES}
     shapes = [s for _, s in calls]
-    bound = sum(chain_bound([s], e == "train")["bound_ms"]
+    least = sum(chain_bound([s], e == "train")["bound_ms"]
                 for e, s in calls)
     return {"calls": len(calls), "gflop": chain_flop(shapes) / 1e9,
             "ms": [p1, p2], "library_ms": [m1, m2],
             "w48_eval_ms": halves["eval"], "w32_train_ms": halves["train"],
-            "bound_ms": bound,
+            "bound_ms": least,
             "tflops": chain_flop(shapes) / ((p1 + p2) / 2) / 1e9}
 
 

@@ -42,13 +42,10 @@ from ..ops.conv3x3_fwd import bf16_plan, conv3x3_fwd, conv3x3_fwd_plain
 from ..ops.conv3x3_fwd_cases import (EDGE_SHAPES, PROBE_SHAPE, RN50_COUNTS,
                                      RN50_SHAPES, WIDE_SHAPES, bf16_ulp,
                                      conv_cases, within_bf16_ulp)
-from ..utils.profiling import (card_label, device_ms, ptxas_report,
-                               tensor_core_counts)
+from ..utils.profiling import (BF16_OPS_PER_S, bound, card_label,
+                               device_ms, ptxas_report, tensor_core_counts)
 from .train_parity import tf32_off
 
-# Card peaks for the bound (NVIDIA H100 SXM data sheet, dense).
-HBM_BYTES_PER_S = 3.35e12
-BF16_OPS_PER_S = 989e12    # tensor cores, bf16 in, float32 accumulate
 # The kernel against its plain version: float32 out within REL_TOL of
 # max|y|, because only the order of the float32 sums differs (bf16
 # products are exact in float32; the tensor cores' sums and the CUDA
@@ -70,9 +67,7 @@ def conv_bound(shapes, out_bytes: int = 2) -> dict:
     nbytes = sum(2 * b * c * h * w + 2 * 9 * c * c + out_bytes * b * c * h * w
                  for b, c, h, w in shapes)
     ops = sum(18 * c * c * b * h * w for b, c, h, w in shapes)
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
-    return {"bound_ms": max(by_bytes, by_ops) * 1e3,
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+    return bound(nbytes, ops, BF16_OPS_PER_S)
 
 
 def check_cases(device) -> dict:

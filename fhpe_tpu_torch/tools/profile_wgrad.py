@@ -40,13 +40,10 @@ from ..ops import _build
 from ..ops.conv_wgrad import bf16_plan, conv3x3_wgrad, conv3x3_wgrad_plain
 from ..ops.conv_wgrad_cases import (EDGE_SHAPES, STEP_SHAPES, WIDE_SHAPES,
                                     planted_wgrad_cases)
-from ..utils.profiling import (card_label, device_ms, ptxas_report,
-                               tensor_core_counts)
+from ..utils.profiling import (BF16_OPS_PER_S, bound, card_label,
+                               device_ms, ptxas_report, tensor_core_counts)
 from .train_parity import cudnn_wgrad
 
-# Card peaks for the bound (NVIDIA H100 SXM data sheet, dense).
-HBM_BYTES_PER_S = 3.35e12
-BF16_OPS_PER_S = 989e12
 TIMED = (32, 64, 64, 64)   # the hourglass student's 64x64 conv2s, batch 32
 # P4 against its plain version, as a share of max|dW|, in bf16 and float32.
 # float32: the CUDA-core kernel and the plain version sum the same float32
@@ -110,9 +107,8 @@ def bound_ms(shapes) -> tuple:
     nbytes = sum(2 * 2 * b * c * h * w + 4 * 9 * c * c
                  for b, c, h, w in shapes)
     ops = sum(2 * 9 * c * c * b * h * w for b, c, h, w in shapes)
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
-    return (max(by_bytes, by_ops) * 1e3,
-            "bytes" if by_bytes >= by_ops else "operations")
+    least = bound(nbytes, ops, BF16_OPS_PER_S)
+    return least["bound_ms"], least["bound_by"]
 
 
 def _inputs(device, shapes, seed=0):

@@ -5,7 +5,8 @@ A step run op by op is bound by the host's dispatch (``PERF.md``), so
 CUDA events around a loop of calls time the host, not the device.  These
 helpers read the device's own activity from a profiler trace instead, and
 count the device ops the host launched (a captured graph's replay is one
-launch).
+launch).  The card's peak rates and :func:`bound`, the least time a
+kernel could take on them, are the one roofline of the port's tools.
 """
 
 from __future__ import annotations
@@ -23,6 +24,10 @@ import torch
 _TRACE_DIR = Path(__file__).resolve().parents[2] / "build" / "traces"
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 TRACES = 3   # profiler traces device_ms takes before it gives up
+# Card peaks for the bound (NVIDIA H100 SXM data sheet, dense).
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12    # tensor cores, bf16 in, float32 accumulate
 
 
 # runtime calls by which the host puts work on the device: kernels, whole
@@ -82,6 +87,16 @@ def device_ms(fn: Callable[[], object], iters: int = 100) -> float:
             return us / iters / 1e3
     raise RuntimeError(f"profiler recorded no kernel time in {TRACES} "
                        f"traces")
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S
+          ) -> dict:
+    """The least time the card could take: bytes over the HBM rate or
+    operations over the peak rate for their type (float32 by default),
+    whichever is larger."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
+    return {"bound_ms": max(by_bytes, by_ops) * 1e3,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def busy_ms(events: List[dict]) -> float:

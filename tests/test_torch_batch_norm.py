@@ -13,6 +13,7 @@ on the card (``tools/profile_bn.py``, ``chip_smoke.py``).
 
 from __future__ import annotations
 
+import copy
 import re
 from collections import Counter
 from pathlib import Path
@@ -33,6 +34,8 @@ from fhpe_tpu_torch.ops.batch_norm_cases import (EDGE_SHAPES, STEP_SHAPES,
                                                  W32_CHAIN_STEP, bn_inputs)
 from fhpe_tpu_torch.tools.train_parity import fpd_cfgs, hrnet_fpd_cfgs, \
     rn50_cfg
+
+from torch_threads import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 SRC = (REPO / "fhpe_tpu_torch" / "ops" / "csrc" / "batch_norm.cu").read_text()
@@ -329,9 +332,33 @@ def test_emulated_kernels_match_float64(shape, itemsize, plan):
 
 # -- the students' shapes, keys, loads and flow -----------------------------------
 
-def _bn_calls(cfg):
-    torch.manual_seed(0)
-    model = get_pose_net(cfg).train()
+STUDENT_CFGS = {"hourglass": lambda: fpd_cfgs("float32")[0],
+                "hrnet": lambda: hrnet_fpd_cfgs("float32")[0],
+                "pose_resnet": lambda: rn50_cfg("float32")}
+
+
+@pytest.fixture(scope="module")
+def student():
+    """``student(make_cfg) -> (cfg, model)``: the full-width student of a
+    ``STUDENT_CFGS`` entry, built once for the module (seed 0) and handed
+    out as a fresh copy, with torch's generator where the build left it,
+    so that a case draws the inputs it drew when it built its own."""
+    built = {}
+
+    def get(make_cfg):
+        if make_cfg not in built:
+            cfg = make_cfg()
+            torch.manual_seed(0)
+            model = get_pose_net(cfg)
+            built[make_cfg] = cfg, model, torch.get_rng_state()
+        cfg, model, rng = built[make_cfg]
+        torch.set_rng_state(rng)
+        return cfg, copy.deepcopy(model)
+    return get
+
+
+def _bn_calls(cfg, model):
+    model.train()
     calls = []
     for m in model.modules():
         if isinstance(m, nn.BatchNorm2d):
@@ -343,14 +370,13 @@ def _bn_calls(cfg):
     return model, {(32, *s[1:]): k for s, k in Counter(calls).items()}
 
 
-@pytest.mark.parametrize("name,cfg", [
-    ("hourglass", lambda: fpd_cfgs("float32")[0]),
-    ("w32", lambda: hrnet_fpd_cfgs("float32")[0])])
-def test_step_shape_sets_match_the_models(name, cfg):
+@pytest.mark.parametrize("name,cfg", [("hourglass", STUDENT_CFGS["hourglass"]),
+                                      ("w32", STUDENT_CFGS["hrnet"])])
+def test_step_shape_sets_match_the_models(student, name, cfg):
     """Each set of ``batch_norm_cases.STEP_SHAPES`` is the student's
     BatchNorm calls in one train forward (182 and 84); HRNet's chains hold
     ``W32_CHAIN_STEP``'s BatchNorms."""
-    model, got = _bn_calls(cfg())
+    model, got = _bn_calls(*student(cfg))
     assert got == STEP_SHAPES[name]
     assert sum(got.values()) == {"hourglass": 182, "w32": 84}[name]
     if name == "w32":
@@ -360,9 +386,9 @@ def test_step_shape_sets_match_the_models(name, cfg):
 
 
 @pytest.mark.parametrize("name,cfg,relu", [
-    ("hourglass", lambda: fpd_cfgs("float32")[0], 182),
-    ("w32", lambda: hrnet_fpd_cfgs("float32")[0], 130),
-    ("rn50", lambda: rn50_cfg("float32"), 36)])
+    ("hourglass", STUDENT_CFGS["hourglass"], 182),
+    ("w32", STUDENT_CFGS["hrnet"], 130),
+    ("rn50", STUDENT_CFGS["pose_resnet"], 36)])
 def test_models_fold_each_relu_that_follows_a_batchnorm(name, cfg, relu):
     """Every BatchNorm is the port's subclass, with its ReLU where one
     follows it directly (HRNet's: 26 outside the chains, each block's bn1
@@ -378,7 +404,6 @@ def test_models_fold_each_relu_that_follows_a_batchnorm(name, cfg, relu):
 def _swap_plain(model):
     """A copy of ``model`` whose BatchNorms are nn.BatchNorm2d, each
     followed (by a forward hook) by the ReLU it folded: the same keys."""
-    import copy
     model = copy.deepcopy(model)
     for m in list(model.modules()):
         for child_name, child in list(m.named_children()):
@@ -393,30 +418,30 @@ def _swap_plain(model):
     return model
 
 
-def _family(family):
+def _family(student, family):
+    """(model, input (H, W)): the vit_pose net cut small, the CNN
+    students at full width on a quarter (HRNet: half) of each side."""
     if family == "vit_pose":
         cfg = load_config(VIT_STUDENT, [
             "MODEL.IMAGE_SIZE", "[24, 32]", "MODEL.HEATMAP_SIZE", "[6, 8]",
             "MODEL.EXTRA.EMBED_DIM", "32", "MODEL.EXTRA.DEPTH", "1",
             "MODEL.EXTRA.NUM_HEADS", "2",
             "MODEL.EXTRA.NUM_DECONV_FILTERS", "[8, 8]"])
-        return cfg, (32, 24)
-    cfg = {"hourglass": fpd_cfgs, "hrnet": hrnet_fpd_cfgs,
-           "pose_resnet": lambda dt: (rn50_cfg(dt),)}[family]("float32")[0]
+        torch.manual_seed(0)
+        return get_pose_net(cfg), (32, 24)
+    cfg, model = student(STUDENT_CFGS[family])
     w, h = (int(v) for v in cfg.MODEL.IMAGE_SIZE)
     cut = 2 if family == "hrnet" else 4   # HRNet's sides: multiples of 32
-    return cfg, (h // cut, w // cut)
+    return model, (h // cut, w // cut)
 
 
 @pytest.mark.parametrize("family", ["hourglass", "hrnet", "pose_resnet",
                                     "vit_pose"])
-def test_reference_loads_and_outputs_unchanged(family):
+def test_reference_loads_and_outputs_unchanged(student, family):
     """Each family's state_dict has the keys of the same net on
     nn.BatchNorm2d + ReLU, loads into it and back (strict), and both give
     the same outputs in train and eval mode."""
-    cfg, hw = _family(family)
-    torch.manual_seed(0)
-    model = get_pose_net(cfg)
+    model, hw = _family(student, family)
     plain = _swap_plain(model)
     sd = model.state_dict()
     assert list(sd) == list(plain.state_dict())
@@ -433,11 +458,9 @@ def test_reference_loads_and_outputs_unchanged(family):
 
 
 @pytest.mark.parametrize("family", ["hourglass", "hrnet"])
-def test_bf16_flow_holds_with_folded_relus(family):
-    cfg = {"hourglass": fpd_cfgs, "hrnet": hrnet_fpd_cfgs}[family](
-        "float32")[0]
-    torch.manual_seed(0)
-    model = get_pose_net(cfg).eval()
+def test_bf16_flow_holds_with_folded_relus(student, family):
+    cfg, model = student(STUDENT_CFGS[family])
+    model.eval()
     w, h = (int(v) for v in cfg.MODEL.IMAGE_SIZE)
     checked, bad = bf16_flow_violations(model, torch.randn(1, 3, h // 2,
                                                            w // 2))

@@ -33,6 +33,7 @@ from fhpe_tpu_torch.utils.dtype import autocast
 
 from test_torch_hourglass import _cfg, _jax_variables
 from test_torch_serve import H, N, W, _serve_cfg
+from torch_threads import torch_threads  # noqa: F401
 
 FLOWS = ["port", "all_float32", "all_bfloat16"]
 
@@ -69,9 +70,38 @@ def tiny():
     return cfg, variables, port
 
 
+@pytest.fixture(scope="module")
+def bottleneck_refs(tiny):
+    """Per block: the port's Bottleneck, its bf16 input (NCHW) and the JAX
+    Bottleneck's output on it (float32, NCHW), each JAX output computed
+    once for the three flows."""
+    _, variables, port = tiny
+    blocks = {
+        "layer1.0": (("layer1", "block0"), port.layer1[0], 8, True, 8),
+        "res.0.0": (("res0", "block0"), port.res[0][0], 16, False, 32),
+    }
+    cache = {}
+
+    def get(block):
+        if block not in cache:
+            path, module, planes, down, cin = blocks[block]
+            sub = {k: variables[k][path[0]][path[1]]
+                   for k in ("params", "batch_stats")}
+            x = jnp.asarray(2 * np.random.RandomState(4).randn(
+                4, 32, 64, cin), jnp.bfloat16)
+            ref = BottleneckJax(planes, downsample=down, dtype=jnp.bfloat16,
+                                biased=False).apply(sub, x, train=False)
+            ref = np.asarray(ref.astype(jnp.float32)).transpose(0, 3, 1, 2)
+            xt = torch.from_numpy(np.asarray(x.astype(jnp.float32))
+                                  .transpose(0, 3, 1, 2).copy()).bfloat16()
+            cache[block] = module, xt, ref
+        return cache[block]
+    return get
+
+
 @pytest.mark.parametrize("flow", FLOWS)
 @pytest.mark.parametrize("block", ["layer1.0", "res.0.0"])
-def test_bf16_bottleneck_matches_jax(tiny, block, flow):
+def test_bf16_bottleneck_matches_jax(bottleneck_refs, block, flow):
     """One pre-activation Bottleneck on a bf16 input.
 
     Measured on the CPU (seeds 3-5): the port's flow is bit-equal on
@@ -79,28 +109,26 @@ def test_bf16_bottleneck_matches_jax(tiny, block, flow):
     mean |diff| >= 2.3e-3; all-bf16 (BatchNorm in bf16) on <= 0.87,
     mean |diff| >= 5e-4.  Tolerance: >= 0.99 bit-equal, mean <= 1e-4.
     """
-    _, variables, port = tiny
-    path, module, planes, down, cin = {
-        "layer1.0": (("layer1", "block0"), port.layer1[0], 8, True, 8),
-        "res.0.0": (("res0", "block0"), port.res[0][0], 16, False, 32),
-    }[block]
-    sub = {k: variables[k][path[0]][path[1]]
-           for k in ("params", "batch_stats")}
-    x = jnp.asarray(2 * np.random.RandomState(4).randn(4, 32, 64, cin),
-                    jnp.bfloat16)
-    ref = BottleneckJax(planes, downsample=down, dtype=jnp.bfloat16,
-                        biased=False).apply(sub, x, train=False)
-    ref = np.asarray(ref.astype(jnp.float32)).transpose(0, 3, 1, 2)
-    xt = torch.from_numpy(np.asarray(x.astype(jnp.float32))
-                          .transpose(0, 3, 1, 2).copy()).bfloat16()
+    module, xt, ref = bottleneck_refs(block)
     out = _run(module, xt, flow)
     assert out.dtype == (torch.float32 if flow == "all_float32"
                          else torch.bfloat16)
     _check(flow, _stats(out.float().numpy(), ref), 0.99, 1e-4)
 
 
+@pytest.fixture(scope="module")
+def heatmaps_ref(tiny):
+    """The tiny net's input (NHWC float32) and the JAX net's bf16 heatmaps
+    on it (stacks, B, J, h, w), computed once for the three flows."""
+    cfg, variables, _ = tiny
+    x = np.random.RandomState(5).randn(4, 64, 128, 3).astype(np.float32)
+    ref = get_pose_net_jax(cfg, dtype=jnp.bfloat16).apply(
+        variables, jnp.asarray(x), train=False)
+    return x, np.asarray(ref).transpose(0, 1, 4, 2, 3)
+
+
 @pytest.mark.parametrize("flow", FLOWS)
-def test_bf16_heatmaps_match_jax(tiny, flow):
+def test_bf16_heatmaps_match_jax(tiny, heatmaps_ref, flow):
     """The whole tiny net (2 stacks, non-square 64 x 128 input): the first
     stack's heatmaps, cast to float32 by both models.
 
@@ -110,11 +138,8 @@ def test_bf16_heatmaps_match_jax(tiny, flow):
     bit-equal, mean <= 1e-3.  The second stack is checked only for shape
     and dtype: by then rounding has spread to every flow alike.
     """
-    cfg, variables, port = tiny
-    x = np.random.RandomState(5).randn(4, 64, 128, 3).astype(np.float32)
-    ref = get_pose_net_jax(cfg, dtype=jnp.bfloat16).apply(
-        variables, jnp.asarray(x), train=False)
-    ref = np.asarray(ref).transpose(0, 1, 4, 2, 3)
+    _, _, port = tiny
+    x, ref = heatmaps_ref
     xt = torch.from_numpy(x.transpose(0, 3, 1, 2).copy())
     outs = _run(port, xt if flow != "all_bfloat16" else xt.bfloat16(), flow)
     assert [o.dtype for o in outs] == [torch.float32] * 2

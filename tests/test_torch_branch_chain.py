@@ -46,6 +46,8 @@ from fhpe_tpu_torch.ops.branch_chain_cases import (EDGE_CASES, W32_SHAPES,
                                                    chain_params)
 from fhpe_tpu_torch.utils import convert
 
+from torch_threads import torch_threads  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "scripts", "probe", "fused_block"))
 from fused_block import chain_reference  # noqa: E402

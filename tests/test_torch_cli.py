@@ -47,6 +47,8 @@ from fhpe_tpu_torch.train import create_train_state
 from fhpe_tpu_torch.utils import checkpoint as ck
 from fhpe_tpu_torch.utils.convert import variables_from_state_dict
 
+from torch_threads import child_env, torch_threads  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHILD = os.path.join(REPO, "tests", "epoch_loop_child.py")
 EXPERIMENTS = sorted(os.path.relpath(p, REPO) for p in glob.glob(
@@ -55,17 +57,6 @@ HG = {"NAME": "hourglass", "NUM_JOINTS": 16, "IMAGE_SIZE": [64, 64],
       "HEATMAP_SIZE": [16, 16], "SIGMA": 2, "PRETRAINED": "",
       "INIT_WEIGHTS": False, "TARGET_TYPE": "gaussian",
       "EXTRA": {"NUM_FEATURES": 16, "NUM_STACKS": 1, "NUM_BLOCKS": 1}}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """The models here are tiny: two intra-op threads run them as fast as
-    all cores do, and spare the other test processes that share the
-    machine (and this module's JAX child) the oversubscription."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def _write_yaml(path, cfg):
@@ -157,8 +148,8 @@ def _parity_yaml(tmp_path, root):
 def _start_jax_child(args):
     """``epoch_loop_child.py ours`` in a subprocess (it enables JAX's
     x64), started before the port's run so that the two overlap."""
-    env = {k: v for k, v in os.environ.items()
-           if not k.startswith(("JAX_", "XLA_"))}
+    env = child_env({k: v for k, v in os.environ.items()
+                     if not k.startswith(("JAX_", "XLA_"))})
     env.update(JAX_COMPILATION_CACHE_DIR=os.environ[
         "JAX_COMPILATION_CACHE_DIR"], FHPE_PLATFORM="cpu", FHPE_DUMP_HLO="0")
     return subprocess.Popen([sys.executable, CHILD, "ours", *args], cwd=REPO,

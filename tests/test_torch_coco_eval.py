@@ -26,6 +26,7 @@ from fhpe_tpu_torch.ops import nms_torch
 from fhpe_tpu_torch.serve import Predictor
 
 from test_torch_hrnet import H, W, he_weights, hrnet_cfg
+from torch_threads import torch_threads  # noqa: F401
 
 IMAGE_SET = "val2017"
 ASPECT = W / H

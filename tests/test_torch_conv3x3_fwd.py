@@ -17,6 +17,7 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +32,8 @@ from fhpe_tpu_torch.ops import conv3x3_fwd as cf
 from fhpe_tpu_torch.ops.conv3x3_fwd_cases import (bf16_ulp, conv_cases,
                                                   within_bf16_ulp)
 from fhpe_tpu_torch.utils.dtype import autocast
+
+from torch_threads import torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROBES = os.path.join(REPO, "scripts", "probe")
@@ -239,12 +242,16 @@ def test_which_models_route_to_the_kernel(monkeypatch, name, make_cfg, hw,
     """Calls of the wrapper per forward, under ``no_grad`` (eval) and with
     grad on (train): PoseResNet's 13 stride-1 3x3 convs, none of the
     hourglass's or HRNet's (their pinned P4 launch counts and cuDNN
-    forwards stay)."""
+    forwards stay).  The stand-in checks the call as the wrapper does,
+    then returns ATen's own conv of the operands in the wrapper's output
+    dtype: the plain version's values are held by the cases above."""
     calls = []
 
-    def counted(*args, **kwargs):
-        calls.append(tuple(args[0].shape))
-        return cf.conv3x3_fwd(*args, **kwargs)
+    def counted(x, weight, bias=None, stride=1, padding=1, out_dtype=None):
+        calls.append(tuple(x.shape))
+        out_dtype = cf._check(x, weight, bias, stride, padding, out_dtype)
+        with torch.autocast(x.device.type, enabled=False):
+            return F.conv2d(x, weight, None, 1, 1).to(out_dtype)
 
     monkeypatch.setattr(common, "conv3x3_fwd", counted)
     torch.manual_seed(0)

@@ -33,6 +33,7 @@ from fhpe_tpu_torch.tools.train_parity import (fpd_cfgs, hrnet_fpd_cfgs,
                                                rn50_cfg)
 
 from test_torch_hourglass import _cfg
+from torch_threads import torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # Against the Pallas kernel and the vjp: both sum the same float32 products
@@ -209,13 +210,18 @@ def test_bf16_geometry_is_the_kernels_struct():
 
 def _step_wgrad_shapes(monkeypatch, cfg):
     """The (B, C, H, W) of every conv3x3_wgrad call of one training
-    backward of ``cfg``'s model at batch 1, as {shape: calls}."""
+    backward of ``cfg``'s model at batch 1, as {shape: calls}.  The
+    stand-in checks the call as the wrapper does, then returns zeros of
+    dW's shape and dtype: nothing here reads the filter gradients, and
+    the plain version's values are held by the cases above."""
     calls = []
-    real = conv_wgrad.conv3x3_wgrad
 
     def counting(x, dy):
         calls.append(tuple(x.shape))
-        return real(x, dy)
+        conv_wgrad._check(x, dy)
+        c = x.shape[1]
+        return x.new_zeros((c, c, 3, 3),
+                           dtype=torch.promote_types(x.dtype, torch.float32))
 
     monkeypatch.setattr("fhpe_tpu_torch.models.common.conv3x3_wgrad",
                         counting)

@@ -42,6 +42,7 @@ from fhpe_tpu_torch.train import make_batch_preprocessor, make_eval_step
 from fhpe_tpu_torch.utils.convert import state_dict_from_jax
 from test_torch_hourglass import _jax_variables
 from test_torch_image import _tie_close
+from torch_threads import torch_threads  # noqa: F401
 
 N, HW = 32, (96, 128)
 MPII_SET, COCO_SET = "synval", "syn2017"

@@ -22,6 +22,8 @@ from fhpe_tpu_torch.ops.decode import (decode_argmax, decode_heatmaps,
                                        make_inverse_transforms)
 from fhpe_tpu_torch.ops.decode_cases import planted_heatmaps
 
+from torch_threads import torch_threads  # noqa: F401
+
 # (B, J, H, W): non-square 64x48 (COCO), square 64x64 (MPII), and a ragged
 # 7x9 map whose rows are not a multiple of 4 floats
 SHAPES = [(6, 17, 64, 48), (2, 16, 64, 64), (3, 5, 7, 9)]

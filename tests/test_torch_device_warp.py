@@ -48,6 +48,7 @@ from fhpe_tpu_torch.train import (create_train_state,
 
 from test_torch_train import (HW, X64_RTOL, _both, _check_adam,
                               _check_stats, _port_model)
+from torch_threads import torch_threads  # noqa: F401
 
 cv2 = pytest.importorskip("cv2")
 
@@ -60,16 +61,6 @@ IMAGE_HW = (200, 240)
 # a floor that differed would move a pixel by a whole tap (tens of levels
 # on these noise images), far above this bar
 WARP_ATOL = 1e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Tiny models: two intra-op threads run them as fast as all cores do
-    and spare the other test processes."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 # -- the resize ---------------------------------------------------------------

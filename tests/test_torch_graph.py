@@ -48,20 +48,12 @@ from fhpe_tpu_torch.utils.graph import (CapturedStep, constant,
                                         storage_fingerprint)
 from fhpe_tpu_torch.utils.logger import WindowedMeters
 
+from torch_threads import torch_threads  # noqa: F401
+
 B = 4
 CPU = torch.device("cpu")
 aten = torch.ops.aten
 HOST_TRAFFIC = (aten._local_scalar_dense, aten.lift_fresh, aten.nonzero)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Tiny models: two intra-op threads run them as fast as all cores
-    do, and spare the other test processes the oversubscription."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 class NoHostTraffic(TorchDispatchMode):

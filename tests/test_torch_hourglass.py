@@ -15,6 +15,8 @@ from fhpe_tpu.utils.torch_import import import_hourglass
 from fhpe_tpu_torch.models import get_pose_net, param_count
 from fhpe_tpu_torch.utils.convert import state_dict_from_jax
 
+from torch_threads import torch_threads  # noqa: F401
+
 
 def _cfg(stacks, feats, joints=16, dead_bias_skip=False):
     cfg = get_default_config()

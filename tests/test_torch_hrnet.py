@@ -23,6 +23,8 @@ from fhpe_tpu_torch.models.common import (bf16_flow_violations,
 from fhpe_tpu_torch.serve import Predictor
 from fhpe_tpu_torch.utils.convert import state_dict_from_jax
 
+from torch_threads import torch_threads  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W, H = 64, 96   # HRNet halves each side five times: multiples of 32
 

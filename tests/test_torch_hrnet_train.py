@@ -44,6 +44,7 @@ from fhpe_tpu_torch.train import (create_train_state, make_batch_preprocessor,
 from test_torch_train import (X64_RTOL, _check_adam, _check_stats, _f64,
                               _held, _jax_state, _nchw, _nchw_batch,
                               _port_model, _to_torch, mesh, x64)  # noqa: F401
+from torch_threads import torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STUDENT_YAML = os.path.join(

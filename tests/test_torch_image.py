@@ -31,6 +31,8 @@ from fhpe_tpu_torch.data import synthetic
 from fhpe_tpu_torch.ops import native_image as ni
 from fhpe_tpu_torch.utils import zipreader
 
+from torch_threads import torch_threads  # noqa: F401
+
 cv2 = pytest.importorskip("cv2")
 
 COLOR = cv2.IMREAD_COLOR | cv2.IMREAD_IGNORE_ORIENTATION

@@ -15,6 +15,8 @@ import jax
 import jax.numpy as jnp
 from flax import serialization
 
+from torch_threads import torch_threads  # noqa: F401
+
 torch = pytest.importorskip("torch")
 sys.path.insert(0, "/root/reference/lib")
 

@@ -12,6 +12,8 @@ from fhpe_tpu_torch.data.mpii_synthetic import (HEADBOX, preds_at_gt,
                                                 synthetic_mpii_gt,
                                                 write_mpii_gt)
 
+from torch_threads import torch_threads  # noqa: F401
+
 PEOPLE = 40
 # PCKh@0.5 allows 0.5 * 0.6 * |headbox diagonal| px
 THRESHOLD_PX = 0.5 * 0.6 * np.sqrt(2) * HEADBOX

@@ -39,17 +39,10 @@ from fhpe_tpu_torch.utils.convert import (state_dict_from_jax,
 from test_torch_hourglass import _cfg as hourglass_cfg
 from test_torch_hrnet import hrnet_cfg
 from test_torch_pose_resnet import _both as pose_resnet_cfgs
+from torch_threads import torch_threads  # noqa: F401
 
 FAMILIES = ("hourglass", "hourglass_dead_bias", "hrnet", "pose_resnet")
 FILES = (ck_jax.FINAL_NAME, ck_jax.BEST_NAME, ck_jax.CKPT_NAME)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def family_cfg(name):

@@ -35,6 +35,8 @@ from fhpe_tpu_torch.ops.nms_torch import (box_nms_device, greedy_nms_mask,
                                           pairwise_iou_torch, pairwise_oks,
                                           pairwise_oks_plain)
 
+from torch_threads import torch_threads  # noqa: F401
+
 NMS_CU = Path(nms_torch.__file__).parent / "csrc" / "nms.cu"
 
 # The JAX package's own bar for K2 against pairwise_oks_jnp

@@ -60,22 +60,13 @@ from fhpe_tpu_torch.utils.convert import state_dict_from_jax
 from test_torch_device_warp import _jax_train_state, _seeded_variables
 from test_torch_train import (SMALL_GRAD, STUDENT_YAML, TEACHER_YAML,
                               X64_RTOL, _held, _nchw, _raw_batch)
+from torch_threads import child_env, torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HW, J, B, STEPS = 64, 16, 4, 2
 LAUNCH_TIMEOUT_S = 120
 SGD = ["TRAIN.OPTIMIZER", "sgd", "TRAIN.NESTEROV", "True",
        "TRAIN.MOMENTUM", "0.9", "TRAIN.WD", "0.0001", "TRAIN.LR", "0.01"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Tiny models: two intra-op threads run them as fast as all cores,
-    and spare the test processes that share the machine."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def _opts(stacks, feats, extra=()):
@@ -90,7 +81,7 @@ def _opts(stacks, feats, extra=()):
 def _torchrun(args, env=None):
     """``torchrun --standalone --nproc_per_node 2 <args>``, started in a
     session of its own so that a timeout kills its children too."""
-    env = dict(os.environ, **(env or {}))
+    env = child_env(dict(os.environ, **(env or {})))
     env["PYTHONPATH"] = os.pathsep.join(
         [REPO] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
     return subprocess.Popen(

@@ -4,6 +4,7 @@ and evaluator, MPII PCKh, the LR schedule, the host data path: db
 builders, filters, loader, zip reader, the warp's C text) stay equal to
 the originals."""
 
+import ast
 import copy
 import glob
 import inspect
@@ -44,6 +45,8 @@ from fhpe_tpu_torch.geometry import affine, flip, targets
 from fhpe_tpu_torch.ops import decode, native_image, nms
 from fhpe_tpu_torch.train import state
 from fhpe_tpu_torch.utils import logger, pretrained, zipreader
+
+from torch_threads import child_env, torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXPERIMENTS = sorted(os.path.relpath(p, REPO) for p in glob.glob(
@@ -88,7 +91,7 @@ def test_port_imports_no_jax():
             "assert 'fhpe_tpu_torch.utils.vis' in names\n"
             "assert 'fhpe_tpu_torch.utils.summary' in names\n"
             "print(len(names))\n")
-    env = dict(os.environ, FHPE_PLATFORM="cpu")
+    env = child_env(dict(os.environ, FHPE_PLATFORM="cpu"))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -332,16 +335,43 @@ def _sources_importing(*modules):
                         if pattern.search(open(p).read())]
 
 
-def test_port_sources_import_no_cv2_or_pil():
+@pytest.mark.parametrize("modules", [
+    # the card's machine may have neither
+    ("cv2", "PIL"),
+    # fhpe_tpu's weight files are read and written by the port's own
+    # utils/msgpack.py: nobody has seen the msgpack package on the card's
+    # machine, and flax is JAX's
+    ("msgpack", "flax")], ids="-".join)
+def test_port_sources_import_none_of(modules):
     """Not at import time (``test_port_imports_no_jax``) and not inside a
-    function either: the card's machine may have neither."""
-    n, found = _sources_importing("cv2", "PIL")
+    function either."""
+    n, found = _sources_importing(*modules)
     assert n > 50 and not found, found
 
 
-def test_port_sources_import_no_msgpack_or_flax():
-    """``fhpe_tpu``'s weight files are read and written by the port's own
-    ``utils/msgpack.py``: nobody has seen the ``msgpack`` package on the
-    card's machine, and flax is JAX's."""
-    n, found = _sources_importing("msgpack", "flax")
-    assert n > 50 and not found, found
+PORT_TESTS = sorted(os.path.basename(p) for p in glob.glob(
+    os.path.join(REPO, "tests", "test_torch_*.py")))
+
+
+@pytest.mark.parametrize("name", PORT_TESTS)
+def test_port_test_takes_the_shared_thread_cap(name):
+    """Every port test module takes ``tests/torch_threads.py``'s fixture by
+    a top-level import and sets torch's thread count nowhere itself."""
+    tree = ast.parse(open(os.path.join(REPO, "tests", name)).read())
+    takes = any(isinstance(n, ast.ImportFrom) and n.module == "torch_threads"
+                and "torch_threads" in {a.name for a in n.names}
+                for n in tree.body)
+    own = [n.lineno for n in ast.walk(tree)
+           if isinstance(n, (ast.Attribute, ast.Name))
+           and getattr(n, "attr", getattr(n, "id", None)) ==
+           "set_num_threads"]
+    assert takes, f"{name} does not import torch_threads.torch_threads"
+    assert not own, f"{name} sets torch's threads itself at lines {own}"
+
+
+def test_the_cap_holds_inside_a_module():
+    import torch
+    from torch_threads import THREADS
+    assert len(PORT_TESTS) >= 33
+    assert torch.get_num_threads() == THREADS
+    assert child_env({})["OMP_NUM_THREADS"] == str(THREADS)

@@ -54,6 +54,7 @@ from test_torch_train import (SMALL_GRAD, X64_RTOL, _check_stats, _f64,
                               _held, _jax_state, _nchw, _nchw_batch,
                               _port_model, _to_torch, _torch_sd, mesh,
                               x64)  # noqa: F401
+from torch_threads import torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RN50_YAML = os.path.join(

@@ -26,6 +26,7 @@ from fhpe_tpu_torch.models import get_pose_net
 from fhpe_tpu_torch.utils.convert import state_dict_from_jax
 from fhpe_tpu_torch.utils.pretrained import load_pretrained
 from test_torch_hrnet import hrnet_cfg
+from torch_threads import torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W32_YAML = os.path.join(REPO, "experiments/coco/hrnet/"

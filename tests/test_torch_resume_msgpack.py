@@ -49,19 +49,12 @@ from fhpe_tpu_torch.utils.convert import (_param_tensors,
 from test_torch_hourglass import _jax_variables
 from test_torch_train import (HW, J, SMALL_GRAD, X64_RTOL, _both, _f64,
                               _jax_state, _nchw_batch)
+from torch_threads import torch_threads  # noqa: F401
 
 B, K = 4, 2
 EPOCH, PERF = 1, 0.625
 SGD = {"TRAIN.OPTIMIZER": "sgd", "TRAIN.NESTEROV": True,
        "TRAIN.MOMENTUM": 0.9, "TRAIN.WD": 1e-4, "TRAIN.LR": 0.01}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def _batches(n, seed):

@@ -37,6 +37,7 @@ from fhpe_tpu_torch.serve.predictor import (replica_devices,
 from fhpe_tpu_torch.utils.convert import state_dict_from_jax
 
 from test_torch_hourglass import _cfg, _jax_variables
+from torch_threads import torch_threads  # noqa: F401
 
 W, H = 64, 128
 N = 13
@@ -54,16 +55,6 @@ def _serve_cfg():
     cfg.TEST.POST_PROCESS = True
     cfg.TPU.NATIVE_WARP = True
     return cfg
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Tiny models: two intra-op threads run them as fast as all cores do
-    and spare the other test processes."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

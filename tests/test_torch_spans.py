@@ -6,7 +6,6 @@ its parent on the calling thread."""
 import logging
 
 import numpy as np
-import pytest
 import torch
 import yaml
 from torch.profiler import ProfilerActivity, profile
@@ -21,20 +20,12 @@ from fhpe_tpu_torch.train import (create_train_state,
 from fhpe_tpu_torch.utils import spans
 from fhpe_tpu_torch.utils.graph import CapturedStep
 
+from torch_threads import torch_threads  # noqa: F401
+
 HG = {"NAME": "hourglass", "NUM_JOINTS": 16, "IMAGE_SIZE": [64, 64],
       "HEATMAP_SIZE": [16, 16], "SIGMA": 2, "PRETRAINED": "",
       "INIT_WEIGHTS": False, "TARGET_TYPE": "gaussian",
       "EXTRA": {"NUM_FEATURES": 16, "NUM_STACKS": 1, "NUM_BLOCKS": 1}}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Tiny models: two intra-op threads run them as fast as all cores do
-    and spare the other test processes."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def _cfg(tmp_path, **over):

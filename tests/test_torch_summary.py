@@ -26,6 +26,8 @@ from fhpe_tpu_torch.tools.train_parity import (HRNET_STUDENT_YAML,
                                                hrnet_fpd_cfgs)
 from fhpe_tpu_torch.utils import summary
 
+from torch_threads import torch_threads  # noqa: F401
+
 FLOPS_RATIO = (1.00, 1.05)      # port / XLA
 HG_YAML = "experiments/mpii/hourglass/hg4_128_student.yaml"
 RN_YAML = "experiments/coco/resnet/res50_256x192.yaml"
@@ -49,14 +51,6 @@ CONFIGS = {
             f"MODEL.EXTRA.STAGE{s}.NUM_BLOCKS", str([1] * s),
             f"MODEL.EXTRA.STAGE{s}.NUM_MODULES", "1")]]),
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def _cfgs(name):

@@ -52,6 +52,7 @@ from fhpe_tpu_torch.utils.convert import (adam_state_from_jax,
                                           state_dict_from_jax)
 
 from test_torch_hourglass import _jax_variables
+from torch_threads import torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STUDENT_YAML = os.path.join(

@@ -16,6 +16,8 @@ import torch
 from fhpe_tpu_torch.cli import common
 from fhpe_tpu_torch.config import get_default_config
 
+from torch_threads import torch_threads  # noqa: F401
+
 B, H, W, J = 4, 8, 6, 16
 
 

@@ -24,6 +24,8 @@ from fhpe_tpu_torch.config import get_default_config
 from fhpe_tpu_torch.ops import native_image
 from fhpe_tpu_torch.utils import vis
 
+from torch_threads import torch_threads  # noqa: F401
+
 cv2 = pytest.importorskip("cv2")
 
 B = 5

@@ -30,6 +30,8 @@ from fhpe_tpu_torch.train import (create_train_state, make_fpd_train_step,
                                   make_optimizer)
 from fhpe_tpu_torch.train.state import adamw_groups
 
+from torch_threads import torch_threads  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VITPOSE = os.path.join(REPO, "experiments_torch", "fpd_coco", "vitpose")
 STUDENT = os.path.join(VITPOSE, "vitpose_b_fpd_student.yaml")

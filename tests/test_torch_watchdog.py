@@ -44,6 +44,7 @@ from fhpe_tpu_torch.utils.graph import CapturedStep, before_capture
 from fhpe_tpu_torch.utils.watchdog import StallWatchdog, null_watchdog
 
 from test_torch_graph import stand_in
+from torch_threads import child_env, torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHILD = os.path.join(REPO, "tests", "watchdog_child.py")
@@ -55,14 +56,6 @@ HG = {"NAME": "hourglass", "NUM_JOINTS": 16, "IMAGE_SIZE": [64, 64],
 # epoch's turn take between two beats on a loaded machine
 CLI_TIMEOUT_S = 3.0
 CHILD_TIMEOUT_S = 120
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 def _spin_until(pred, timeout=10.0):
@@ -257,7 +250,7 @@ def test_train_cli_does_not_fire(tmp_path, caplog, case):
 
 
 def _child(args, env, torchrun=False):
-    env = dict(os.environ, **env)
+    env = child_env(dict(os.environ, **env))
     env["PYTHONPATH"] = os.pathsep.join(
         [REPO] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
     cmd = [sys.executable]
